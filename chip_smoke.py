@@ -3,27 +3,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (RGBD -> POH -> 3-plane focal stack, the path
-of ``generatePOH.py --propagate``) on the card at full width: 384 x 384
-input, pad 320 (1024 x 1024 padded grid), UNet base 64, float32, weights
-from a fixed seed.  Phases:
+Drives the port's two paths on the card at full width, 384 x 384 input,
+pad 320 (1024 x 1024 padded grid), UNet base 64, float32, weights from a
+fixed seed: inference (RGBD -> POH -> 3-plane focal stack, the path of
+``generatePOH.py --propagate``) and GAN training (``trainingModel.py
+--use_gan``: critic feature_d 32, 20 distances, batch 4, ratio 5).  Phases:
 
   1. environment: Python, torch, CUDA, nvcc, the card's name and power limit;
-  2. build every kernel of the path from ``csrc/`` with nvcc (timed);
-  3. each kernel against its plain PyTorch version at the main-path shapes
-     (batch 16), with its time, the plain version's, a library yardstick
-     and the card's lower bound for the same work;
-  4. the slice through ``generate_poh.main`` on synthetic RGBD files, with
+  2. build every kernel from ``csrc/`` with nvcc, one process per source,
+     all started together (timed);
+  3. each kernel (K1 in its inference and training modes, K2, K3) against
+     its plain PyTorch version at the paths' shapes, with its time, the
+     plain version's, a library yardstick and the card's lower bound for
+     the same work;
+  4. inference through ``generate_poh.main`` on synthetic RGBD files, with
      the launch counters reset before and read after, then the batch-16
      POH rate;
-  5. the slice at a small size through ``generate_poh.main`` on the card
-     (kernels) against the CPU (plain versions), same weights
-     (``card_check``).
+  5. training through ``training_model.main --use_gan --perceptual random``:
+     one epoch of 3 steps on 12 seeded random samples, then one validation
+     batch through the trainer's eval step, counters reset before and read
+     after; then steps/s, peak memory and a split of one step by CUDA events
+     and by ``torch.profiler`` (phases 3 and 5 of the training slice live in
+     ``learned_hologram_gan_tpu_torch/train_smoke.py``);
+  6. both paths at a small size on the card (kernels) against the CPU
+     (plain versions), same weights and draws (``card_check``).
 
 It raises on any failure.  It prints the kernels' JSON line and then, as
 its last line, ``{"ok": true, "device": {...}}``.  It exits non-zero at once
 when CUDA is absent.  It changes no global torch setting: the port keeps its
-float32 convolutions out of TF32 itself, and phases 4 and 5 check that.
+float32 convolutions out of TF32 itself, forward and backward, and phases
+4-6 check that.
 """
 
 import importlib.metadata
@@ -35,19 +44,12 @@ import sys
 import tempfile
 import time
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bandwidth, f32 non-tensor rate
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
 
 BATCH = 16
 ROWS = COLS = 384
 PAD = 320
 DISTANCES = (4e-4, 7e-4, 1e-3)  # np.linspace(4e-4, 1e-3, 3), generatePOH defaults
-# K1 against its plain version, relative to max |plain|: FFT rounding in f32
-# over three 1024-point transforms is ~1e-6; H is computed in the same f32
-# operation order on both sides.
-K1_MAX_REL_TOL = 1e-4
-K1_P999_REL_TOL = 1e-5
+SUBPROCESS_TIMEOUT_S = 120
 
 
 class Phase:
@@ -67,36 +69,16 @@ class Phase:
 
 
 def run(cmd):
-    return subprocess.run(cmd, capture_output=True, text=True, timeout=120, check=True).stdout.strip()
-
-
-def cuda_ms(fn, iters=10, warmup=2):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def fft_flops(n, count):
-    """5 n log2 n real operations per complex n-point FFT."""
-    import math
-
-    return 5.0 * n * math.log2(n) * count
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT_S,
+                          check=True).stdout.strip()
 
 
 def k1_bound_ms(p, rows, cols, rp, cp, num_d, masked):
     """Least time for propagate_planes' work on these shapes: the larger of
     its bytes (fr, fi, wl2, dists, mask read once; the cropped result written
     once) over HBM bandwidth and its FFT + H arithmetic over the f32 rate."""
+    from learned_hologram_gan_tpu_torch.utils.cuda_measure import bound_ms, fft_flops
+
     in_bytes = 2 * p * rows * cols * 4 + p * 4 + num_d * 4 + (rp * cp * 4 if masked else 0)
     out_bytes = 2 * p * num_d * rows * cols * 4
     flops = (
@@ -108,24 +90,15 @@ def k1_bound_ms(p, rows, cols, rp, cp, num_d, masked):
         # counted as 2, complex multiply 6, mask 2
         + p * num_d * rp * cp * (8 + 6 + (2 if masked else 0))
     )
-    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def relative_errors(kr, ki, rr, ri):
-    import torch
-
-    err = torch.sqrt((kr - rr) ** 2 + (ki - ri) ** 2).flatten()
-    scale = torch.sqrt(rr**2 + ri**2).max()
-    rel = err / scale
-    p999 = rel.sort().values[int(0.999 * (rel.numel() - 1))]
-    return float(err.max()), float(rel.max()), float(p999), float(scale)
+    return bound_ms(in_bytes + out_bytes, flops)
 
 
 def phase_kernels(card):
     import numpy as np
     import torch
+
+    from learned_hologram_gan_tpu_torch.utils.cuda_measure import (
+        MAX_REL_TOL, P999_REL_TOL, cuda_ms, relative_errors)
 
     from learned_hologram_gan_tpu_torch.config import GeneratorConfig, OpticsConfig
     from learned_hologram_gan_tpu_torch.models import make_generator_plan
@@ -163,10 +136,10 @@ def phase_kernels(card):
         torch.cuda.synchronize()
         abs_err, max_rel, p999_rel, scale = relative_errors(kr, ki, rr, ri)
         del kr, ki, rr, ri
-        ok = max_rel <= K1_MAX_REL_TOL and p999_rel <= K1_P999_REL_TOL
+        ok = max_rel <= MAX_REL_TOL and p999_rel <= P999_REL_TOL
         print(f"K1 {name}: planes {fr.shape[0]}, out {tuple(fr.shape[:1]) + (int(dvec.shape[0]), ROWS, COLS)}; "
               f"max|err| {abs_err:.3e} (max|plain| {scale:.3e}); rel max {max_rel:.3e} "
-              f"(tol {K1_MAX_REL_TOL:g}), rel p99.9 {p999_rel:.3e} (tol {K1_P999_REL_TOL:g})",
+              f"(tol {MAX_REL_TOL:g}), rel p99.9 {p999_rel:.3e} (tol {P999_REL_TOL:g})",
               flush=True)
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version ({name})")
@@ -221,6 +194,8 @@ def phase_slice(card):
     import numpy as np
     import torch
 
+    from learned_hologram_gan_tpu_torch.utils.cuda_measure import MAX_REL_TOL, cuda_ms
+
     from learned_hologram_gan_tpu_torch import card_check, generate_poh
     from learned_hologram_gan_tpu_torch.config import GeneratorConfig, OpticsConfig
     from learned_hologram_gan_tpu_torch.models import make_generator, make_generator_plan
@@ -243,13 +218,13 @@ def phase_slice(card):
         "--device", "cuda",
     ]
     # the main path's run: counters to 0 just before, read just after
-    spectral.propagate_planes.launches = 0
+    spectral.reset_launch_counts()
     start = time.perf_counter()
     with card_check.record_conv_tf32([]) as tf32:
         result = generate_poh.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    launches = spectral.propagate_planes.launches
+    launches = spectral.row_pass.launches
     print(f"generate_poh.main (first call, weights init included): {wall:.2f} s; "
           f"K1 launches {launches}; TF32 on in {sum(tf32)} of {len(tf32)} convolutions",
           flush=True)
@@ -285,8 +260,8 @@ def phase_slice(card):
     ref = torch.sqrt(rr**2 + ri**2).reshape(1, 3, 3, ROWS, COLS).transpose(1, 2).reshape(3, 3, ROWS, COLS)
     stack_err = float((stack - ref).abs().max() / ref.max())
     print(f"focal stack vs plain version on the main path's POH: max rel {stack_err:.3e} "
-          f"(tol {K1_MAX_REL_TOL:g})", flush=True)
-    if stack_err > K1_MAX_REL_TOL:
+          f"(tol {MAX_REL_TOL:g})", flush=True)
+    if stack_err > MAX_REL_TOL:
         raise AssertionError("focal stack disagrees with the plain version")
 
     # batch-16 throughput: generator forward + 3-plane focal stack
@@ -305,13 +280,13 @@ def phase_slice(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     iters = 5
-    spectral.propagate_planes.launches = 0
+    spectral.reset_launch_counts()
     start = time.perf_counter()
     for _ in range(iters):
         out = forward()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
-    if spectral.propagate_planes.launches != 2 * iters:
+    if spectral.row_pass.launches != 2 * iters:
         raise AssertionError("K1 did not launch twice per forward")
     if not torch.isfinite(out[1]).all():
         raise AssertionError("non-finite batch-16 focal stack")
@@ -319,7 +294,7 @@ def phase_slice(card):
     print(f"batch-{BATCH} forward (generator + 3-plane focal stack): "
           f"{elapsed / iters * 1e3:.1f} ms, {rate:.2f} POH/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1 launches "
-          f"{spectral.propagate_planes.launches} in {iters} forwards [{card}]", flush=True)
+          f"{spectral.row_pass.launches} in {iters} forwards [{card}]", flush=True)
 
     # where the time goes: the forward's three stages, each timed alone
     with torch.inference_mode():
@@ -347,6 +322,15 @@ def phase_small_vs_cpu():
           "{stack_p999:.2e} max {stack_max:.2e}; TF32 on in {convs_tf32} of {convs} "
           "convolutions; K1 launches {k1_launches}".format(**stats), flush=True)
     card_check.check(stats)
+    stats = card_check.train_step_card_vs_cpu("cuda")
+    metrics = "; ".join(f"{k} {a:.6g} / {b:.6g}" for k, (a, b) in stats["metrics"].items())
+    print(f"small train step, CPU / card: {metrics}", flush=True)
+    print("small train step, card vs CPU: gradients G {grad_G_rel:.2e} D {grad_D_rel:.2e} of "
+          "max|g|; running stats excess G {stats_G_excess:.2e} D {stats_D_excess:.2e}; TF32 on "
+          "in {convs_forward_tf32} of {convs_forward} forwards, {convs_backward_tf32} of "
+          "{convs_backward} backwards; launches K1 {k1_launches}, K2 {k2_launches}, K3 "
+          "{k3_launches}".format(**stats), flush=True)
+    card_check.check_train_step(stats)
 
 
 def main():
@@ -355,7 +339,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr, flush=True)
         return 1
-    from learned_hologram_gan_tpu_torch.ops.cuda import build, spectral
+    from learned_hologram_gan_tpu_torch import train_smoke
+    from learned_hologram_gan_tpu_torch.ops.cuda import build, fft, spectral
 
     t0 = time.perf_counter()
 
@@ -372,26 +357,42 @@ def main():
         print(card, flush=True)
 
     with Phase("build"):
-        res = build.build_library(spectral.KERNEL_NAME)
-        print(f"{res.path.name}: {'cached' if res.cached else 'built'} in {res.seconds:.1f} s "
-              f"(nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
-        for line in res.log.splitlines():
-            if "ptxas" in line:
-                print(line.strip(), flush=True)
-        spectral._kernel_fn()
+        start = time.perf_counter()
+        results = build.build_libraries([spectral.KERNEL_NAME, fft.KERNEL_NAME])
+        print(f"nvcc ({' '.join(build.NVCC_FLAGS)}), one process per source: "
+              f"{time.perf_counter() - start:.1f} s wall", flush=True)
+        for res in results.values():
+            print(f"{res.path.name}: {'cached' if res.cached else 'built'} in {res.seconds:.1f} s",
+                  flush=True)
+            for line in res.log.splitlines():
+                if "ptxas" in line:
+                    print(line.strip(), flush=True)
+        spectral._kernel_fns()
+        fft._kernel_fn()
 
-    with Phase("kernels vs plain versions (batch 16)"):
+    with Phase("kernels vs plain versions: inference (batch 16)"):
         k1 = phase_kernels(card)
+
+    with Phase("kernels vs plain versions: training (batch 4, 20 distances)"):
+        train_kernels = train_smoke.training_kernels(card)
 
     with Phase("main path: generate_poh at full width, then batch-16 rate"):
         k1["launches"] = phase_slice(card)
 
-    with Phase("small slice: card vs CPU"):
+    with Phase("main path: training_model --use_gan at full width"):
+        launches = train_smoke.training_path(card)
+    modes = launches["k1_modes"]
+    train_kernels["k1_train"]["launches"] = modes["from_spectrum+per_plane"] + modes["from_spectrum"]
+    train_kernels["k2"]["launches"] = launches["k2"]
+    train_kernels["k3"]["launches"] = launches["k3"]
+
+    with Phase("small slices: card vs CPU"):
         phase_small_vs_cpu()
 
     print(f"total wall {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    print(json.dumps({"kernels": [k1, train_kernels["k1_train"], train_kernels["k2"],
+                                  train_kernels["k3"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """PyTorch and CUDA port of ``learned_hologram_gan_tpu`` for NVIDIA Hopper.
 
-RGBD -> phase-only hologram -> focal stack, with the fused ASM propagation
-(kernel K1) written in CUDA (``csrc/``).  Imports torch, numpy and the
-standard library only; entry points run on ``cuda`` unless asked for the
-CPU.  See ``generate_poh.py`` for the command-line entry point.
+RGBD -> phase-only hologram -> focal stack, and the WGAN-GP training of
+the generator, with the fused ASM propagation (kernel K1), its backward
+(K2) and the one-axis FFT (K3) written in CUDA (``csrc/``).  Imports torch,
+numpy and the standard library only; entry points run on ``cuda`` unless
+asked for the CPU.  The command-line entry points are ``generate_poh.py``
+and ``training_model.py``.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""The slice at a small size on a CUDA device, held against the CPU.
+"""The slices at a small size on a CUDA device, held against the CPU.
 
 :func:`card_vs_cpu` runs ``generate_poh.main`` on one sample with the same
 seeded weights twice: on the card, through the port's kernels, and on the
@@ -12,7 +12,13 @@ convolution ran under.  :func:`check` raises unless the two agree:
   CPU tests);
 * every convolution on the card ran with TF32 off, and K1 launched twice.
 
-``chip_smoke.py`` and ``tests/test_torch_cuda.py`` both call it.
+:func:`train_step_card_vs_cpu` does the same for one GAN train step
+(:data:`TRAIN` sizes) from the same carried weights, distance indices and
+GP alphas, and :func:`check_train_step` raises unless the metrics, both
+nets' gradients and BatchNorm statistics agree within the bounds below and
+every convolution, forward and backward, ran with TF32 off.
+
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` call both.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from __future__ import annotations
 import contextlib
 import os
 import tempfile
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -33,24 +39,49 @@ UNET_BASE = 4
 POH_MEAN_TOL, POH_P99_TOL, POH_MAX_TOL = 2e-3, 1e-2, 5e-2
 STACK_P999_TOL, STACK_MAX_TOL = 1e-3, 4e-3
 
+# one train step: 32 x 32 in a 64 x 64 grid (K1, K2 and K3 on the card),
+# UNet base 4, critic feature_d 2, ratio 2, four distances, random VGG19
+TRAIN = dict(hw=32, pad=16, unet_base=4, feature_d=2, batch=2, ratio=2, distances=4)
+# Bounds, card against CPU.  Metrics: float32 rounding of FFTs and convs
+# through two critic updates, relative.  Gradients: relative to the largest
+# |g| of the net (a conv bias feeding a train-mode BatchNorm has a gradient
+# of exactly 0, rounding noise on both sides).  Running statistics: such a
+# bias still moves by +-lr under Adam's first step, in the direction of its
+# noise's sign, which the card and the CPU may draw differently; the
+# critic's second stats update then sees batch means up to 2 * lr = 2e-3
+# apart, and its running mean moves by momentum 0.01 times that, 2e-5
+# (measured 1.97e-5 on the H100): atol 5e-5 on top of rtol 1e-3.
+METRIC_RTOL, GRAD_TOL, STATS_RTOL, STATS_ATOL = 1e-3, 1e-2, 1e-3, 5e-5
+
 
 @contextlib.contextmanager
-def record_conv_tf32(seen: List[bool]):
+def record_conv_tf32(seen: List[bool], seen_backward: Optional[List[bool]] = None):
     """Append ``torch.backends.cudnn.allow_tf32`` to ``seen`` as each
-    convolution module of the process starts its forward."""
+    convolution module of the process starts its forward and, when
+    ``seen_backward`` is given, to it as each such convolution's backward
+    node starts (a double backward runs inside the same backward call)."""
     from .nn.blocks import ChannelWiseSymmetricConv
 
     convs = (nn.Conv2d, nn.ConvTranspose2d, ChannelWiseSymmetricConv)
 
-    def hook(module, args):
+    def pre_hook(module, args):
         if isinstance(module, convs):
             seen.append(bool(torch.backends.cudnn.allow_tf32))
 
-    handle = nn.modules.module.register_module_forward_pre_hook(hook)
+    def post_hook(module, args, output):
+        if isinstance(module, convs) and output.grad_fn is not None:
+            output.grad_fn.register_prehook(
+                lambda grads: seen_backward.append(bool(torch.backends.cudnn.allow_tf32))
+            )
+
+    handles = [nn.modules.module.register_module_forward_pre_hook(pre_hook)]
+    if seen_backward is not None:
+        handles.append(nn.modules.module.register_module_forward_hook(post_hook))
     try:
         yield seen
     finally:
-        handle.remove()
+        for h in handles:
+            h.remove()
 
 
 def card_vs_cpu(device: str | torch.device = "cuda", seed: int = 3) -> dict:
@@ -77,11 +108,11 @@ def card_vs_cpu(device: str | torch.device = "cuda", seed: int = 3) -> dict:
                 "--output_image_dir", os.path.join(tmp, f"recon_{run}"), "--device", dev,
             ]
             seen: List[bool] = []
-            before = spectral.propagate_planes.launches
+            before = spectral.row_pass.launches
             with record_conv_tf32(seen):
                 result = generate_poh.main(argv)
             # kept from the last run, the card's
-            tf32, launches = seen, spectral.propagate_planes.launches - before
+            tf32, launches = seen, spectral.row_pass.launches - before
             outs[run] = (result["poh"].cpu().double().numpy(), result["focal_stack"].cpu().numpy())
     (cpu_poh, cpu_stack), (card_poh, card_stack) = outs[0], outs[1]
     d = np.abs(np.exp(1j * card_poh) - np.exp(1j * cpu_poh))
@@ -107,3 +138,119 @@ def check(stats: dict) -> None:
         problems.append(f"K1 launched {stats['k1_launches']} times, want 2")
     if problems:
         raise AssertionError("card and CPU disagree: " + "; ".join(problems))
+
+
+def _train_inputs(seed: int):
+    """Seeded (generator config, train state on the CPU, numpy batch,
+    distance indices, GP alphas)."""
+    from .config import DiscriminatorConfig, GeneratorConfig
+    from .losses import load_vgg19_params, make_vgg19
+    from .train.state import build_modules, create_train_state
+
+    t = TRAIN
+    cfg = GeneratorConfig(rows=t["hw"], cols=t["hw"], pad_size=t["pad"],
+                          filter_radius_coefficient=0.45, unet_base_features=t["unet_base"])
+    g, d = build_modules(cfg, DiscriminatorConfig(feature_d=t["feature_d"]), use_gan=True)
+    vgg_state, _ = load_vgg19_params(mode="random")
+    state = create_train_state(seed, g, d, 1e-3, 1e-3, "cpu", make_vgg19(vgg_state, "cpu"))
+    rng = np.random.default_rng(seed)
+    b, hw = t["batch"], t["hw"]
+    batch = tuple(rng.random((b, c, hw, hw)).astype(np.float32) for c in (4, 3, 3))
+    idx = torch.from_numpy(rng.permutation(t["distances"])[:b])
+    alphas = torch.from_numpy(rng.random((t["ratio"], b, 1, 1, 1)).astype(np.float32))
+    return cfg, state, batch, idx, alphas
+
+
+def _run_train_step(cfg, state, batch, idx, alphas, device):
+    from .config import LossConfig
+    from .models import make_generator_plan
+    from .ops import asm
+    from .train import steps
+
+    gen_plan = make_generator_plan(cfg, device=device)
+    multi = asm.make_plan(cfg.optics(), distances=np.linspace(-4e-4, 0.0, TRAIN["distances"] + 1)[:-1],
+                          device=device)
+    step = steps.build_train_step(
+        LossConfig(perceptual_loss_weight=0.1, discriminator_loss_weight=0.1, perceptual="random"),
+        True, TRAIN["ratio"], 10.0)
+    batch = tuple(torch.from_numpy(a).to(device) for a in batch)
+    _, metrics = step(state, batch, gen_plan, multi, idx=idx, alphas=alphas)
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def _snapshot(state):
+    def grads(m):
+        return {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu().double()
+                for k, p in m.named_parameters()}
+
+    def stats(m):
+        return {k: v.detach().cpu().double() for k, v in m.state_dict().items()
+                if k.endswith(("running_mean", "running_var"))}
+
+    return dict(grad_G=grads(state.generator), grad_D=grads(state.discriminator),
+                stats_G=stats(state.generator), stats_D=stats(state.discriminator))
+
+
+def train_step_card_vs_cpu(device: str | torch.device = "cuda", seed: int = 5) -> dict:
+    """One train step on the CPU (plain versions) and on ``device`` (the
+    kernels) from the same weights and draws; returns the worst
+    differences, the card run's kernel launches and TF32 settings."""
+    import copy
+
+    from .ops.cuda import fft, spectral
+
+    cfg, state, batch, idx, alphas = _train_inputs(seed)
+    card_state = copy.deepcopy(state)
+    card_state.generator.to(device)
+    card_state.discriminator.to(device)
+    card_state.vgg.to(device)
+    # optimizers built on the card's parameters, with the CPU's (empty) state
+    card_state.opt_G = torch.optim.Adam(card_state.generator.parameters(), lr=1e-3)
+    card_state.opt_D = torch.optim.Adam(card_state.discriminator.parameters(), lr=1e-3)
+
+    cpu_metrics = _run_train_step(cfg, state, batch, idx, alphas, "cpu")
+    spectral.reset_launch_counts()
+    fft.fft_axis.launches = 0
+    fwd, bwd = [], []
+    with record_conv_tf32(fwd, bwd):
+        card_metrics = _run_train_step(cfg, card_state, batch, idx, alphas, device)
+    a, b = _snapshot(state), _snapshot(card_state)
+    out = dict(
+        metrics={k: (cpu_metrics[k], card_metrics[k]) for k in cpu_metrics},
+        convs_forward=len(fwd), convs_forward_tf32=int(sum(fwd)),
+        convs_backward=len(bwd), convs_backward_tf32=int(sum(bwd)),
+        k1_launches=spectral.row_pass.launches, k2_launches=spectral.row_adjoint.launches,
+        k3_launches=fft.fft_axis.launches,
+    )
+    for key in ("grad_G", "grad_D"):
+        scale = max(float(t.abs().max()) for t in a[key].values())
+        out[key + "_rel"] = max(float((a[key][k] - b[key][k]).abs().max()) for k in a[key]) / scale
+    for key in ("stats_G", "stats_D"):
+        out[key + "_excess"] = max(
+            float(((a[key][k] - b[key][k]).abs() - STATS_RTOL * a[key][k].abs()).max())
+            for k in a[key])
+    return out
+
+
+def check_train_step(stats: dict) -> None:
+    """Raise ``AssertionError`` naming every bound that ``stats`` (from
+    :func:`train_step_card_vs_cpu`) breaks."""
+    problems = []
+    for k, (cpu, card) in stats["metrics"].items():
+        if not (np.isfinite(cpu) and np.isfinite(card)) or abs(card - cpu) > METRIC_RTOL * abs(cpu) + 1e-6:
+            problems.append(f"metric {k}: CPU {cpu:.6g}, card {card:.6g}")
+    for key in ("grad_G_rel", "grad_D_rel"):
+        if not stats[key] <= GRAD_TOL:
+            problems.append(f"{key} {stats[key]:.3e} > {GRAD_TOL:g}")
+    for key in ("stats_G_excess", "stats_D_excess"):
+        if not stats[key] <= STATS_ATOL:
+            problems.append(f"{key} {stats[key]:.3e} > {STATS_ATOL:g}")
+    for part in ("forward", "backward"):
+        n, on = stats[f"convs_{part}"], stats[f"convs_{part}_tf32"]
+        if n == 0 or on != 0:
+            problems.append(f"{on} of {n} convolutions ran their {part} with TF32 on")
+    for name in ("k1", "k2", "k3"):
+        if stats[f"{name}_launches"] == 0:
+            problems.append(f"{name.upper()} did not launch")
+    if problems:
+        raise AssertionError("train step: card and CPU disagree: " + "; ".join(problems))

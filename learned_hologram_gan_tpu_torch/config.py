@@ -1,17 +1,19 @@
 """Optics and generator configuration (counterpart of
 ``learned_hologram_gan_tpu/config.py``).
 
-Only the fields the inference slice reads are carried: the padded-grid
-geometry, the physics constants and the generator widths.  The JAX
-package's training dataclasses, its TPU-only switches (``remat``,
-``polyphase_level0``) and ``pad_cols_override`` have no counterpart here
-yet.
+Carried: the padded-grid geometry, the physics constants, the generator
+widths, and the critic, loss and training dataclasses.  The JAX package's
+TPU-only switches (``remat``, ``polyphase_level0``), ``dtype`` and
+``pad_cols_override`` have no counterpart here yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+# reference trainingModel.py:18
+DEFAULT_SEED = 122731
 
 # Model-layer default (reference generator.py:24, watermelon.py:57,79)
 DEFAULT_WAVELENGTHS: Tuple[float, float, float] = (638e-9, 520e-9, 450e-9)
@@ -75,3 +77,47 @@ class GeneratorConfig:
             pixel_pitch=self.pixel_pitch,
             wavelengths=self.wavelengths,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class DiscriminatorConfig:
+    """WGAN-GP patch critic (reference discriminator.py:5-51)."""
+
+    feature_d: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Weighted generator-loss mix (reference watermelon.py:92-116,418-445).
+
+    ``phase_loss`` selects the phase-term variant of the ablations:
+    "focal_sincos_gradient" (the full model), "plain", "focal_sincos" or
+    "sincos_gradient".  ``perceptual`` is "vgg19" (pretrained weights
+    required), "random" (the explicit untrained-VGG opt-in) or "none".
+    """
+
+    phs_gradient_loss_weight: float = 1.0
+    perceptual_loss_weight: float = 1.0
+    pixel_loss_weight: float = 1.0
+    tv_loss_weight: float = 1e-3
+    discriminator_loss_weight: float = 1.0
+    phase_loss: str = "focal_sincos_gradient"
+    perceptual: str = "vgg19"
+    perceptual_weights_path: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Full GAN training schedule (reference watermelon.py:92-116)."""
+
+    use_gan: bool = True  # False = watermelon_without_GAN family
+    epoch_num: int = 2
+    lr_G: float = 1e-3
+    lr_D: float = 1e-3
+    discriminator_train_ratio: int = 2
+    discriminator_lambda: float = 10.0
+    checkpoint_interval: int = 5
+    info_print_interval: int = 100
+    info_plot_interval: int = 600
+    seed: int = DEFAULT_SEED
+    batch_size: int = 4

@@ -1,10 +1,10 @@
 """Carry weights from the JAX package's flax trees into the port's modules.
 
-Input: the generator's ``{"params": ..., "batch_stats": ...}`` variables as
+Input: a network's ``{"params": ..., "batch_stats": ...}`` variables as
 nested dicts of numpy arrays (how they come out of flax, or out of a
-msgpack file read by any msgpack reader).  Output: a ``state_dict`` for
-:class:`~.models.generator.Generator`, whose submodules carry the flax
-names, so each leaf maps by its path:
+msgpack file read by any msgpack reader).  Output: a ``state_dict`` for the
+port's module (the Generator, the critic, VGG19), whose submodules carry
+the flax names, so each leaf maps by its path:
 
   conv ``kernel`` (H, W, I, O)            -> ``weight`` (O, I, H, W)
   transposed-conv ``kernel`` (2, 2, I, O) -> ``weight`` (I, O, 2, 2) with the
@@ -71,4 +71,25 @@ def generator_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     """
     out: Dict[str, torch.Tensor] = {}
     _walk(variables["params"], variables.get("batch_stats", {}), "", out)
+    return out
+
+
+def discriminator_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The critic's flax variables -> the port critic's ``state_dict``
+    (:class:`~.models.discriminator.WGANGPDiscriminator192`, or
+    ``FakeDiscriminator``'s single ``a``)."""
+    params = variables["params"]
+    if set(params) == {"a"}:
+        return {"a": _tensor(params["a"])}
+    out: Dict[str, torch.Tensor] = {}
+    _walk(params, variables.get("batch_stats", {}), "", out)
+    return out
+
+
+def vgg19_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """VGG19's ``{"conv_i": {"kernel", "bias"}}`` flax params (or the
+    ``.npz`` layout read into that tree) -> the port
+    :class:`~.losses.perceptual.VGG19Features` ``state_dict``."""
+    out: Dict[str, torch.Tensor] = {}
+    _walk(params, {}, "", out)
     return out

@@ -1,5 +1,12 @@
-"""Datasets over the MIT-CGH-4K ``.bin`` files."""
+"""Datasets over the MIT-CGH-4K ``.bin`` files and the epoch loader."""
 
-from .memmap import ImgDepthDataset
+from .memmap import ImgDepthAmpPhsDataset, ImgDepthDataset, batch_indices, gather_batch
+from .prefetch import epoch_loader
 
-__all__ = ["ImgDepthDataset"]
+__all__ = [
+    "ImgDepthAmpPhsDataset",
+    "ImgDepthDataset",
+    "batch_indices",
+    "epoch_loader",
+    "gather_batch",
+]

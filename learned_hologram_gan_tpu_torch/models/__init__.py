@@ -1,5 +1,6 @@
-"""Model layer: the two-stage generator."""
+"""Model layer: the two-stage generator and the WGAN-GP critic."""
 
+from .discriminator import FakeDiscriminator, WGANGPDiscriminator192
 from .generator import (
     AP2POH,
     Generator,
@@ -11,8 +12,10 @@ from .generator import (
 
 __all__ = [
     "AP2POH",
+    "FakeDiscriminator",
     "Generator",
     "RGBD2AP",
+    "WGANGPDiscriminator192",
     "double_phase_encode",
     "make_generator",
     "make_generator_plan",

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 # BatchNorm as flax.linen.BatchNorm: epsilon 1e-5, momentum 0.99 on the
-# running average, which is torch's momentum 0.01 (unused in eval).
+# running average, which is torch's momentum 0.01.
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.01
 # std of a standard normal truncated to (-2, 2), as jax.nn.initializers uses
@@ -52,8 +52,54 @@ def _conv(in_ch: int, features: int, kernel: int) -> nn.Conv2d:
     return nn.Conv2d(in_ch, features, kernel, padding=kernel // 2 if kernel > 1 else 0)
 
 
-def _batch_norm(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm(nn.BatchNorm2d):
+    """``flax.linen.BatchNorm`` over NCHW channels.
+
+    Eval mode normalizes with the running statistics, as torch does.  Train
+    mode normalizes with the batch statistics and updates the running ones
+    as flax does (flax/linen/normalization.py): with the *biased* batch
+    variance ``E[x^2] - E[x]^2``, where torch's own BatchNorm would take the
+    unbiased one, and with momentum 0.99 on the running average.  Inside
+    :func:`frozen_batch_stats` train mode leaves the running statistics as
+    they are (flax's apply with the update discarded).
+    """
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.update_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        if self.update_stats:
+            with torch.no_grad():
+                xf = x.float()
+                mean = xf.mean(dim=(0, 2, 3))
+                var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module):
+    """Train-mode forwards of ``module`` inside the block normalize with
+    batch statistics but leave every :class:`BatchNorm`'s running
+    statistics unchanged."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    prev = [m.update_stats for m in norms]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, p in zip(norms, prev):
+            m.update_stats = p
+
+
+def _batch_norm(features: int) -> BatchNorm:
+    return BatchNorm(features)
 
 
 class ResidualBlock(nn.Module):

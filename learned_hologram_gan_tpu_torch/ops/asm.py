@@ -1,7 +1,7 @@
 """Band-limited angular-spectrum (ASM) propagation on ``torch.fft``.
 
 Counterpart of ``learned_hologram_gan_tpu/ops/asm.py`` for the inference
-slice.  The propagation is
+and GAN-training slices.  The propagation is
 ``crop(ifft2(fft2(pad(A * exp(i*phi))) * H * mask))`` with
 ``H = exp(-2*pi*i * z * w)`` and ``w = sqrt(max(1/lambda^2 - fx^2 - fy^2, 0))``
 (reference angular_spectrum_method.py:68-94, :155-171, :195-213).  Because
@@ -11,8 +11,10 @@ Two branches, as in the JAX package:
   * fused: :func:`_fused_apply` hands the unpadded field to
     ``ops/cuda/spectral.propagate_planes`` (kernel K1 on a CUDA tensor, its
     plain version on a CPU tensor), which never writes a padded plane;
-  * composable: pad -> ``torch.fft.fft2`` -> multiply -> ``ifft2`` -> crop,
-    for grids K1 does not support.
+  * composable: pad -> :func:`_fft2` -> multiply -> :func:`_ifft2` -> crop,
+    for grids K1 does not support, and the spectrum primitives.  ``_fft2``
+    and ``_ifft2`` are ``ops/cuda/fft`` (kernel K3 on a CUDA tensor,
+    ``torch.fft`` on a CPU tensor or a grid K3 rejects).
 Complex tensors are complex64; the public layout is NCHW.
 """
 
@@ -61,6 +63,10 @@ class PropagatorPlan:
     @property
     def padded_cols(self) -> int:
         return self.cols + 2 * self.pad_cols
+
+    @property
+    def num_distances(self) -> int:
+        return 0 if self.distances is None else int(self.distances.shape[0])
 
 
 def make_plan(
@@ -188,6 +194,18 @@ def _angle(x: torch.Tensor) -> torch.Tensor:
     return torch.atan2(x.imag, x.real)
 
 
+def _fft2(x: torch.Tensor) -> torch.Tensor:
+    from .cuda import fft
+
+    return fft.fft2(x)
+
+
+def _ifft2(x: torch.Tensor) -> torch.Tensor:
+    from .cuda import fft
+
+    return fft.ifft2(x)
+
+
 # ---------------------------------------------------------------------------
 # Fused branch: ops/cuda/spectral.propagate_planes (kernel K1)
 # ---------------------------------------------------------------------------
@@ -205,21 +223,30 @@ def fused_args(
     distances: torch.Tensor,
     *,
     conj_h: bool = False,
+    from_spectrum: bool = False,
+    per_plane: bool = False,
     use_mask: bool = True,
 ):
     """The ``propagate_planes`` arguments ``(fr, fi, wl2, dists, mask, cfg)``
-    for unpadded (B, C, rows, cols) complex planes ``g``."""
+    for unpadded (B, C, rows, cols) complex planes ``g``, or the padded
+    (B, C, Rp, Cp) spectrum when ``from_spectrum``.  With ``per_plane``,
+    ``distances`` holds one distance per sample, shared by its channels."""
     b, cch = g.shape[0], g.shape[1]
-    rows, cols = plan.rows, plan.cols
-    fr = g.real.float().reshape(b * cch, rows, cols).contiguous()
-    fi = g.imag.float().reshape(b * cch, rows, cols).contiguous()
+    shape = g.shape[-2:]
+    fr = g.real.float().reshape(b * cch, *shape).contiguous()
+    fi = g.imag.float().reshape(b * cch, *shape).contiguous()
     wl2 = torch.from_numpy(np.tile(_inv_wl_sq(plan.wavelengths), b)[:, None]).to(g.device)
-    dvec = distances.float().reshape(-1, 1).contiguous()
+    if per_plane:
+        dvec = distances.float().reshape(-1).repeat_interleave(cch)[:, None].contiguous()
+        num_d = 1
+    else:
+        dvec = distances.float().reshape(-1, 1).contiguous()
+        num_d = int(dvec.shape[0])
     mask = plan.mask if use_mask else None
     cfg = (
-        float(plan.pixel_pitch), bool(conj_h), False, False, int(dvec.shape[0]),
-        plan.padded_rows, plan.padded_cols,
-        (plan.pad_rows, rows, plan.pad_cols, cols),
+        float(plan.pixel_pitch), bool(conj_h), bool(from_spectrum), bool(per_plane),
+        num_d, plan.padded_rows, plan.padded_cols,
+        (plan.pad_rows, plan.rows, plan.pad_cols, plan.cols),
     )
     return fr, fi, wl2, dvec, mask, cfg
 
@@ -230,16 +257,21 @@ def _fused_apply(
     distances: torch.Tensor,
     *,
     conj_h: bool = False,
+    from_spectrum: bool = False,
+    per_plane: bool = False,
     use_mask: bool = True,
 ) -> torch.Tensor:
-    """Propagate unpadded (B, C, rows, cols) complex planes to every distance.
+    """Propagate unpadded (B, C, rows, cols) complex planes (the padded
+    (B, C, Rp, Cp) spectrum when ``from_spectrum``) to every distance.
 
     Returns (B, D, C, rows, cols) complex64, already cropped to the plan's
-    central window.
+    central window (D = 1 when ``per_plane``, whose distances are one per
+    sample).
     """
     from .cuda import spectral
 
-    args = fused_args(plan, g, distances, conj_h=conj_h, use_mask=use_mask)
+    args = fused_args(plan, g, distances, conj_h=conj_h, from_spectrum=from_spectrum,
+                      per_plane=per_plane, use_mask=use_mask)
     outr, outi = spectral.propagate_planes(*args)
     b, cch, num_d = g.shape[0], g.shape[1], args[-1][4]
     out = torch.complex(outr, outi).reshape(b, cch, num_d, plan.rows, plan.cols)
@@ -247,7 +279,7 @@ def _fused_apply(
 
 
 # ---------------------------------------------------------------------------
-# Primitives of the inference slice
+# Fixed-distance primitives (reference subclass :263-466)
 # ---------------------------------------------------------------------------
 
 
@@ -262,8 +294,15 @@ def propagate_ap2c_backward(
             plan, g, plan.distances[:1], conj_h=True, use_mask=False
         )
         return out[:, 0]
-    gz = torch.fft.fft2(pad(plan, g))
-    return crop(plan, torch.fft.ifft2(gz * torch.conj(_fixed_h(plan))))
+    gz = _fft2(pad(plan, g))
+    return crop(plan, _ifft2(gz * torch.conj(_fixed_h(plan))))
+
+
+def propagate_poh2freq_forward(plan: PropagatorPlan, poh: torch.Tensor) -> torch.Tensor:
+    """Phase-only hologram -> filtered image-plane spectrum, the full padded
+    (B, C, Rp, Cp) complex64 (reference :386-392)."""
+    g0 = _fft2(pad(plan, field(torch.ones_like(poh), poh)))
+    return g0 * (_fixed_h(plan) * plan.mask)
 
 
 def propagate_poh2ap_forward(
@@ -274,9 +313,15 @@ def propagate_poh2ap_forward(
     if _fused_ok(plan) and plan.distances is not None:
         gz = _fused_apply(plan, g, plan.distances[:1])[:, 0]
         return gz.abs(), _angle(gz)
-    g0 = torch.fft.fft2(pad(plan, g))
-    gz = crop(plan, torch.fft.ifft2(g0 * (_fixed_h(plan) * plan.mask)))
+    g0 = _fft2(pad(plan, g))
+    gz = crop(plan, _ifft2(g0 * (_fixed_h(plan) * plan.mask)))
     return gz.abs(), _angle(gz)
+
+
+# ---------------------------------------------------------------------------
+# Multi-distance focal-stack primitives (reference subclass :469-552)
+# ---------------------------------------------------------------------------
+
 
 
 def propagate_batch_multi(
@@ -297,8 +342,73 @@ def propagate_batch_multi(
     if _fused_ok(plan):
         out = _fused_apply(plan, g, distances).abs()
         return out.reshape(out.shape[0] * out.shape[1], *out.shape[2:])
-    g0 = torch.fft.fft2(pad(plan, g))  # (B, C, Rp, Cp)
+    g0 = _fft2(pad(plan, g))  # (B, C, Rp, Cp)
     h = _h_stack(plan) if use_plan_stack else _transfer_function(plan.w_grid, distances)
     gz = g0[:, None] * (h * plan.mask)[None]  # (B, D, C, Rp, Cp)
     gz = gz.reshape(gz.shape[0] * gz.shape[1], *gz.shape[2:])
-    return crop(plan, torch.fft.ifft2(gz)).abs()
+    return crop(plan, _ifft2(gz)).abs()
+
+
+def filter_ap2filtered_freq(
+    plan: PropagatorPlan, amp: torch.Tensor, phs: torch.Tensor
+) -> torch.Tensor:
+    """Target amp/phase -> aperture-filtered padded spectrum (reference
+    :548-552).  ``phs`` is the dataset's normalized [0, 1] phase, scaled by
+    2*pi here like the reference."""
+    g0 = _fft2(pad(plan, field(amp, (2.0 * np.pi) * phs)))
+    return g0 * plan.mask
+
+
+def freq2ap_all_distances(
+    plan: PropagatorPlan, g0: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Spectrum (B, C, Rp, Cp) -> (amp, phase) at every cached distance,
+    each (B*D, C, rows, cols), row ``b*D + d`` being sample b at distance d
+    (reference :524-531)."""
+    if _fused_ok(plan) and plan.distances is not None:
+        out = _fused_apply(plan, g0, plan.distances, from_spectrum=True)
+        gz = out.reshape(out.shape[0] * out.shape[1], *out.shape[2:])
+        return gz.abs(), _angle(gz)
+    gz = g0[:, None] * (_h_stack(plan) * plan.mask)[None]  # (B, D, C, Rp, Cp)
+    gz = crop(plan, _ifft2(gz.reshape(gz.shape[0] * gz.shape[1], *gz.shape[2:])))
+    return gz.abs(), _angle(gz)
+
+
+def draw_distance_indices(
+    plan: PropagatorPlan, batch: int, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """(batch,) distinct indices into the plan's distance stack, a random
+    permutation's head drawn from ``generator`` on the CPU (reference
+    randperm, :536).  Needs batch <= num_distances."""
+    num_d = plan.num_distances
+    if batch > num_d:
+        raise ValueError(
+            f"random-distance draw needs batch <= num_distances (got batch {batch}, "
+            f"{num_d} cached distances): distances are drawn without "
+            "replacement, matching the reference's randperm (:536)."
+        )
+    return torch.randperm(num_d, generator=generator)[:batch]
+
+
+def freq2ap_random_distances(
+    plan: PropagatorPlan, g0: torch.Tensor, idx: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pair each (hat, target) sample with one cached distance.
+
+    ``g0`` is a (2B, C, Rp, Cp) stack, generated ("hat") half first, then
+    target; hat[i] and target[i] both go to distance ``idx[i]`` (reference
+    :533-546; :func:`draw_distance_indices` draws ``idx``).  Returns
+    ((2B, C, rows, cols) amp, phase).
+    """
+    b = g0.shape[0] // 2
+    if tuple(idx.shape) != (b,):
+        raise ValueError(f"need one distance index per sample pair, got {tuple(idx.shape)}")
+    idx = idx.to(plan.distances.device)
+    if _fused_ok(plan):
+        z = plan.distances[idx]
+        gz = _fused_apply(plan, g0, torch.cat([z, z]), from_spectrum=True, per_plane=True)[:, 0]
+        return gz.abs(), _angle(gz)
+    h = (_h_stack(plan) * plan.mask)[idx]  # (B, C, Rp, Cp)
+    gz = g0.reshape(2, b, *g0.shape[1:]) * h[None]
+    gz = crop(plan, _ifft2(gz.reshape(2 * b, *g0.shape[1:])))
+    return gz.abs(), _angle(gz)

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 nvcc alone (no PyTorch headers, so a build takes seconds) into
-``_build/<name>-<hash>.so``, where the hash covers the source and the
-flags: a second run with the same source loads the existing library.  The
-build happens at first use, never at import.
+``_build/<name>-<hash>.so``, where the hash covers the source, the shared
+headers (``csrc/*.cuh``) and the flags: a second run with the same sources
+loads the existing library.  The build happens at first use, never at
+import; :func:`build_libraries` starts one nvcc per source at once.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Dict, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -57,37 +59,58 @@ def find_nvcc() -> str:
     return found
 
 
+def _target(name: str) -> Path:
+    source = CSRC_DIR / f"{name}.cu"
+    blob = source.read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        blob += b"\0" + header.name.encode() + b"\0" + header.read_bytes()
+    digest = hashlib.sha256(blob + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_libraries(names: Sequence[str]) -> Dict[str, BuildResult]:
+    """Compile each ``csrc/<name>.cu`` whose library of the same hash does
+    not exist yet, one nvcc process per source, all started together."""
+    results: Dict[str, BuildResult] = {}
+    running = []
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            results[name] = BuildResult(target, 0.0, True, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        source = CSRC_DIR / f"{name}.cu"
+        proc = subprocess.Popen(
+            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        running.append((name, source, target, tmp, proc, time.perf_counter()))
+    failures = []
+    try:
+        for name, source, target, tmp, proc, start in running:
+            log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed on {source} (exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, target)
+            results[name] = BuildResult(target, time.perf_counter() - start, False, log)
+    finally:
+        for _, _, _, tmp, proc, _ in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return results
+
+
 def build_library(name: str) -> BuildResult:
     """Compile ``csrc/<name>.cu`` unless a library of the same hash exists."""
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    target = BUILD_DIR / f"{name}-{digest}.so"
-    if target.exists():
-        return BuildResult(target, 0.0, True, "")
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    start = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
-            capture_output=True, text=True, timeout=BUILD_TIMEOUT_S,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {source} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return BuildResult(
-        target, time.perf_counter() - start, False, proc.stdout + proc.stderr
-    )
+    return build_libraries([name])[name]
 
 
 @functools.lru_cache(maxsize=None)

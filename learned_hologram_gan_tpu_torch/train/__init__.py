@@ -1,5 +1,34 @@
-"""Training and inference steps (inference only so far)."""
+"""Training: state, steps, checkpoints and the Watermelon trainer."""
 
-from .steps import build_infer_fn
+from . import checkpoint
+from .state import TrainState, build_modules, create_train_state
+from .steps import build_eval_step, build_infer_fn, build_train_step, gradient_penalty
+from .watermelon import (
+    Watermelon,
+    watermelon,
+    watermelon_without_GAN,
+    watermelon_without_GAN_and_focal_sincos_phase_loss,
+    watermelon_without_GAN_and_phase_sincos_gradient_loss,
+    watermelon_without_GAN_and_plain_phase_loss,
+    watermelon_without_GAN_without_modulation,
+    watermelon_without_GAN_without_perceptual_loss,
+)
 
-__all__ = ["build_infer_fn"]
+__all__ = [
+    "TrainState",
+    "Watermelon",
+    "build_eval_step",
+    "build_infer_fn",
+    "build_modules",
+    "build_train_step",
+    "checkpoint",
+    "create_train_state",
+    "gradient_penalty",
+    "watermelon",
+    "watermelon_without_GAN",
+    "watermelon_without_GAN_and_focal_sincos_phase_loss",
+    "watermelon_without_GAN_and_phase_sincos_gradient_loss",
+    "watermelon_without_GAN_and_plain_phase_loss",
+    "watermelon_without_GAN_without_modulation",
+    "watermelon_without_GAN_without_perceptual_loss",
+]

@@ -1,14 +1,243 @@
-"""Inference step (counterpart of
-``learned_hologram_gan_tpu/train/steps.py:build_infer_fn``)."""
+"""GAN train, eval and inference steps (counterpart of
+``learned_hologram_gan_tpu/train/steps.py``).
+
+One train step (reference watermelon.py:207-284), in this order:
+
+  1. POH = G(RGBD), G in train mode: its BatchNorm running stats update once;
+  2. hat spectrum: POH -> filtered spectrum (fixed-distance plan; K3 fft2);
+  3. target spectrum: (amp, phs) -> filtered spectrum (no gradient);
+  4. random-distance reconstruction of concat(hat, target) (K1 in
+     ``from_spectrum`` + ``per_plane`` mode): hat[i] and target[i] share
+     the drawn distance;
+  5. the critic, ``discriminator_train_ratio`` times: one apply on
+     concat([target, hat]) (the only forward whose BatchNorm statistics
+     update), the WGAN-GP penalty (a ``create_graph`` double backward through
+     the critic on batch statistics, no update), Adam on D;
+  6. the 5-term generator loss against the *updated* critic, then its
+     backward through the graph of step 1 (K2 twice, K3's adjoint) and
+     Adam on G.
+
+The generator runs forward once: the critic sees detached views of its
+output, and step 6 backpropagates through the graph kept from step 1.
+Only ``critic_batching="pair"`` is ported.  Every convolution of a step,
+forward and backward, runs in full float32 (``full_f32_convs``), whatever
+the caller's TF32 setting.  The random draws (distance indices, GP alphas)
+come from ``state.rng`` unless passed in, as the parity tests pass JAX's.
+"""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Tuple
 
 import torch
 
+from ..config import LossConfig
+from ..losses import PHASE_LOSSES, mse, perceptual_loss, psnr, ssim, total_variation_loss
 from ..models.generator import Generator
+from ..nn.blocks import frozen_batch_stats, full_f32_convs
+from ..ops import asm
 from ..ops.asm import PropagatorPlan
+from .state import TrainState
+
+Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (RGBD, amp, phs)
+Recon = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@full_f32_convs()
+def reconstruct(
+    generator: Generator,
+    gen_plan: PropagatorPlan,
+    multi_plan: PropagatorPlan,
+    batch: Batch,
+    idx: torch.Tensor,
+) -> Recon:
+    """Steps 1-4: (hat_amps, target_amps, hat_phs, target_phs), each
+    (B, C, rows, cols), hat[i] and target[i] at distance ``idx[i]``.  The
+    hat side keeps its graph back to the generator; the target side has
+    none."""
+    rgbd, target_amp, target_phs = batch
+    poh = generator(gen_plan, rgbd)
+    hat_freq = asm.propagate_poh2freq_forward(gen_plan, poh)
+    with torch.no_grad():
+        target_freq = asm.filter_ap2filtered_freq(multi_plan, target_amp, target_phs)
+    amps, phss = asm.freq2ap_random_distances(
+        multi_plan, torch.cat([hat_freq, target_freq], dim=0), idx
+    )
+    b = rgbd.shape[0]
+    return amps[:b], amps[b:].detach(), phss[:b], phss[b:].detach()
+
+
+def gradient_penalty(
+    discriminator: torch.nn.Module,
+    real: torch.Tensor,
+    fake: torch.Tensor,
+    alpha: torch.Tensor,
+) -> torch.Tensor:
+    """WGAN-GP penalty ((||grad_x D(x_interp)||_2 - 1)^2).mean() (reference
+    compute_gradient_penalty, watermelon.py:458-477), differentiable in the
+    critic's parameters.  The critic runs in train mode on batch statistics
+    and leaves its running statistics unchanged, as the JAX package discards
+    that update."""
+    interp = (alpha * real + (1.0 - alpha) * fake).requires_grad_(True)
+    with frozen_batch_stats(discriminator):
+        out = discriminator(interp)
+    (grads,) = torch.autograd.grad(out.sum(), interp, create_graph=True)
+    norms = torch.sqrt((grads.reshape(grads.shape[0], -1) ** 2).sum(dim=1) + 1e-12)
+    return ((norms - 1.0) ** 2).mean()
+
+
+@full_f32_convs()
+def critic_updates(
+    state: TrainState,
+    target_amps: torch.Tensor,
+    hat_amps: torch.Tensor,
+    alphas: torch.Tensor,
+    discriminator_lambda: float,
+) -> torch.Tensor:
+    """Step 5: ``len(alphas)`` critic updates on detached reconstructions;
+    returns the mean critic loss (0 when there are none)."""
+    critic = state.discriminator
+    params = [p for p in critic.parameters() if p.requires_grad]
+    b = target_amps.shape[0]
+    losses = []
+    for alpha in alphas:
+        both_v = critic(torch.cat([target_amps, hat_amps], dim=0))
+        gp = gradient_penalty(critic, target_amps, hat_amps, alpha)
+        loss = -both_v[:b].mean() + both_v[b:].mean() + discriminator_lambda * gp
+        state.opt_D.zero_grad(set_to_none=True)
+        loss.backward(inputs=params)
+        state.opt_D.step()
+        losses.append(loss.detach())
+    if not losses:
+        return torch.zeros((), device=target_amps.device)
+    return torch.stack(losses).mean()
+
+
+def _g_loss_terms(
+    loss_cfg: LossConfig,
+    vgg,
+    hat_amps: torch.Tensor,
+    target_amps: torch.Tensor,
+    hat_phs: torch.Tensor,
+    target_phs: torch.Tensor,
+    loss_from_discriminator: torch.Tensor,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The 5-term weighted generator loss (reference G_loss,
+    watermelon.py:418-445)."""
+    phs_loss = PHASE_LOSSES[loss_cfg.phase_loss](hat_phs, target_phs) * loss_cfg.phs_gradient_loss_weight
+    if loss_cfg.perceptual == "none":
+        p_loss = torch.zeros((), device=hat_amps.device)
+    else:
+        p_loss = perceptual_loss(vgg, hat_amps, target_amps) * loss_cfg.perceptual_loss_weight
+    pixel_loss = mse(hat_amps, target_amps) * loss_cfg.pixel_loss_weight
+    tv_loss = total_variation_loss(hat_amps, target_amps) * loss_cfg.tv_loss_weight
+    gan_loss = loss_from_discriminator * loss_cfg.discriminator_loss_weight
+    loss = phs_loss + p_loss + pixel_loss + tv_loss + gan_loss
+    terms = {
+        "focal_phase_gradient_loss": phs_loss,
+        "perceptual_loss": p_loss,
+        "pixel_loss": pixel_loss,
+        "TV_loss": tv_loss,
+        "gan_loss": gan_loss,
+        "G_loss": loss,
+    }
+    return loss, terms
+
+
+@full_f32_convs()
+def generator_update(
+    state: TrainState, loss_cfg: LossConfig, recon: Recon
+) -> Dict[str, torch.Tensor]:
+    """Step 6: the generator loss against the current critic (train mode,
+    batch statistics, no running-stat update), its backward through the
+    reconstruction's graph, Adam on G.  Returns the loss terms, detached."""
+    hat_amps, target_amps, hat_phs, target_phs = recon
+    with frozen_batch_stats(state.discriminator):
+        loss_from_d = -state.discriminator(hat_amps).mean()
+    loss, terms = _g_loss_terms(
+        loss_cfg, state.vgg, hat_amps, target_amps, hat_phs, target_phs, loss_from_d
+    )
+    params = [p for p in state.generator.parameters() if p.requires_grad]
+    state.opt_G.zero_grad(set_to_none=True)
+    loss.backward(inputs=params)
+    state.opt_G.step()
+    return {k: v.detach() for k, v in terms.items()}
+
+
+def draw_step_randoms(
+    state: TrainState, multi_plan: PropagatorPlan, batch_size: int, ratio: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The step's distance indices (B,) and GP alphas (ratio, B, 1, 1, 1),
+    drawn on the CPU from ``state.rng``."""
+    idx = asm.draw_distance_indices(multi_plan, batch_size, state.rng)
+    alphas = torch.rand((ratio, batch_size, 1, 1, 1), generator=state.rng)
+    return idx, alphas
+
+
+def build_train_step(
+    loss_cfg: LossConfig,
+    use_gan: bool,
+    discriminator_train_ratio: int,
+    discriminator_lambda: float,
+) -> Callable:
+    """Build ``train_step(state, batch, gen_plan, multi_plan, idx=None,
+    alphas=None) -> (state, metrics)``, which updates ``state`` in place.
+
+    ``idx`` (B,) and ``alphas`` (ratio, B, 1, 1, 1) override the draws from
+    ``state.rng``.  ``metrics`` holds 0-dim tensors on the batch's device.
+    """
+    ratio =discriminator_train_ratio if use_gan else 0
+
+    def train_step(state: TrainState, batch: Batch, gen_plan, multi_plan, idx=None, alphas=None):
+        b = batch[0].shape[0]
+        drawn_idx, drawn_alphas = draw_step_randoms(state, multi_plan, b, ratio)
+        idx = drawn_idx if idx is None else idx
+        alphas = drawn_alphas if alphas is None else alphas
+        state.generator.train()
+        state.discriminator.train()
+        recon = reconstruct(state.generator, gen_plan, multi_plan, batch, idx)
+        hat_d, target_d = recon[0].detach(), recon[1]
+        d_loss = critic_updates(
+            state, target_d, hat_d, alphas.to(hat_d.device), discriminator_lambda
+        )
+        metrics = generator_update(state, loss_cfg, recon)
+        with torch.no_grad():
+            metrics["D_loss"] = d_loss
+            metrics["PSNR"] = psnr(hat_d, target_d)
+            metrics["SSIM"] = ssim(hat_d, target_d)
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+def build_eval_step(loss_cfg: LossConfig) -> Callable:
+    """Validation step over ALL cached distances (reference
+    _validate_generator, watermelon.py:479-552): eval mode (the train step
+    sets train mode again), no autograd, the critic loss fixed at 0."""
+
+    @torch.no_grad()
+    @full_f32_convs()
+    def eval_step(state: TrainState, batch: Batch, gen_plan, multi_plan) -> Dict[str, torch.Tensor]:
+        rgbd, target_amp, target_phs = batch
+        state.generator.eval()
+        state.discriminator.eval()
+        poh = state.generator(gen_plan, rgbd)
+        hat_freq = asm.propagate_poh2freq_forward(gen_plan, poh)
+        target_freq = asm.filter_ap2filtered_freq(multi_plan, target_amp, target_phs)
+        amps, phss = asm.freq2ap_all_distances(multi_plan, torch.cat([hat_freq, target_freq]))
+        half = amps.shape[0] // 2
+        hat_amps, target_amps = amps[:half], amps[half:]
+        loss_from_d = -state.discriminator(hat_amps).mean()
+        _, metrics = _g_loss_terms(
+            loss_cfg, state.vgg, hat_amps, target_amps, phss[:half], phss[half:], loss_from_d
+        )
+        metrics["D_loss"] = torch.zeros((), device=hat_amps.device)
+        metrics["PSNR"] = psnr(hat_amps, target_amps)
+        metrics["SSIM"] = ssim(hat_amps, target_amps)
+        return metrics
+
+    return eval_step
 
 
 def build_infer_fn(generator: Generator) -> Callable:

@@ -1,6 +1,8 @@
-"""The port's entry points on the CPU: the generate_poh CLI, its PNG writer,
-the import graph, and chip_smoke.py's refusal to run without a card."""
+"""The port's entry points on the CPU: the generate_poh and training_model
+CLIs, the PNG writer, checkpoints, the data loader, the import graph, and
+chip_smoke.py's refusal to run without a card."""
 
+import json
 import os
 import subprocess
 import sys
@@ -14,7 +16,7 @@ import torch
 from learned_hologram_gan_tpu.config import GeneratorConfig as JaxGenConfig
 from learned_hologram_gan_tpu.models import Generator as JaxGenerator
 from learned_hologram_gan_tpu.models import make_generator_plan as jax_gen_plan
-from learned_hologram_gan_tpu_torch import card_check, convert, generate_poh
+from learned_hologram_gan_tpu_torch import card_check, convert, generate_poh, training_model
 from learned_hologram_gan_tpu_torch.data import ImgDepthDataset
 from learned_hologram_gan_tpu_torch.utils.plotting import multi_sample_plotter, write_png
 from test_torch_models import jax_apply, jax_variables
@@ -113,6 +115,22 @@ def test_card_check_on_cpu():
         card_check.check(dict(stats, k1_launches=2, convs_tf32=1))
 
 
+def test_train_step_card_check_on_cpu():
+    """The train-step card-vs-CPU check with the CPU in both places:
+    identical results, no TF32, no kernel launch, and check_train_step()
+    names what it misses."""
+    stats = card_check.train_step_card_vs_cpu("cpu")
+    assert all(a == b for a, b in stats["metrics"].values())
+    assert stats["grad_G_rel"] == 0 and stats["grad_D_rel"] == 0
+    assert stats["convs_forward"] > 0 and stats["convs_backward"] > 0
+    with pytest.raises(AssertionError, match="K1 did not launch"):
+        card_check.check_train_step(stats)
+    card_check.check_train_step(dict(stats, k1_launches=2, k2_launches=2, k3_launches=6))
+    with pytest.raises(AssertionError, match="backward with TF32 on"):
+        card_check.check_train_step(dict(stats, k1_launches=2, k2_launches=2, k3_launches=6,
+                                         convs_backward_tf32=1))
+
+
 def test_generate_poh_refuses_what_is_not_ported(tmp_path):
     paths = _write_bins(tmp_path)
     (tmp_path / "G.msgpack").write_bytes(b"\x80")
@@ -149,6 +167,176 @@ def test_png_writer_round_trip(tmp_path):
     img = np.asarray(Image.open(paths[1]))
     want = (np.clip(stack[1].transpose(1, 2, 0), 0, 1) * 255).astype(np.uint8)
     np.testing.assert_array_equal(img, want)
+
+
+# ---------------------------------------------------------------------------
+# training_model
+# ---------------------------------------------------------------------------
+
+
+def _write_training_bins(tmp_path, hw=16, n_train=4):
+    rng = np.random.default_rng(18)
+    argv = []
+    for split, n in (("train", n_train), ("validate", 100)):  # the CLI reads 100 validation samples
+        for name in ("img", "depth", "amp", "phs"):
+            p = str(tmp_path / f"{split}_{name}.bin")
+            rng.random((n, 3, hw, hw)).astype(np.float32).tofile(p)
+            argv += [f"--{split}_{name}_path", p]
+    return argv + ["--samplesNum", str(n_train), "--channlesNum", "3",
+                   "--height", str(hw), "--width", str(hw)]
+
+
+def _train_argv(tmp_path, extra=()):
+    out = tmp_path / "out"
+    return _write_training_bins(tmp_path) + [
+        "--save_path_G", str(out / "G.pt"), "--save_path_D", str(out / "D.pt"),
+        "--loss_metrics_file", str(out / "history.json"), "--save_path_img", str(out / "imgs"),
+        "--unet_base_features", "2", "--epoch_num", "1", "--device", "cpu", *extra,
+    ]
+
+
+def test_training_model_cpu_writes_checkpoints_history_and_pngs(tmp_path, capsys):
+    """One GAN epoch of one step at 16 x 16 (the CLI's pad 320 gives a
+    656 x 656 grid: the composable path) on the CPU."""
+    trainer, history = training_model.main(_train_argv(tmp_path, ["--use_gan", "--perceptual", "none"]))
+    out = capsys.readouterr().out
+    assert "Generator saved to" in out and "visualization saved at epoch 0" in out
+    names = set(os.listdir(tmp_path / "out"))
+    assert {"G.pt", "D.pt", "G_epoch0.pt", "D_epoch0.pt", "history.json", "imgs"} <= names
+    sd = torch.load(tmp_path / "out" / "G.pt", weights_only=True)
+    assert set(sd) == set(trainer.state.generator.state_dict())
+    torch.testing.assert_close(sd["part1.unet.enc_0.Conv_0.weight"],
+                               trainer.state.generator.part1.unet.enc_0.Conv_0.weight.detach())
+    sd_d = torch.load(tmp_path / "out" / "D.pt", weights_only=True)
+    assert "BatchNorm_4.running_var" in sd_d
+    with open(tmp_path / "out" / "history.json") as f:
+        hist = json.load(f)
+    # the JAX package's key layout (train/watermelon.py:history)
+    from learned_hologram_gan_tpu.train.watermelon import LOSS_KEYS, METRIC_KEYS
+
+    assert set(hist) == {"epoch", "n_batch_in_epoch", "n_train", "n_batch", "train_losses_tensor",
+                         "train_metrics_tensor", "validate_losses_tensor", "validate_metrics_tensor"}
+    assert set(hist["train_losses_tensor"]) == set(LOSS_KEYS)
+    assert set(hist["validate_metrics_tensor"]) == set(METRIC_KEYS)
+    assert sorted(os.listdir(tmp_path / "out" / "imgs")) == ["amp_hat in epoch 0.png", "phs_hat in epoch 0.png"]
+    assert trainer.state.step == 1
+    for p in trainer.state.discriminator.parameters():
+        assert torch.isfinite(p).all()
+
+
+def test_trainer_records_history_like_jax(tmp_path):
+    """The Watermelon loop on reusable loaders: the validation interval, the
+    history counters and finite losses, as the JAX package's own test checks
+    (tests/test_train.py::test_gan_training_runs_and_records_history)."""
+    from learned_hologram_gan_tpu_torch.train import Watermelon
+    from learned_hologram_gan_tpu_torch.train import checkpoint as ckpt
+
+    rng = np.random.default_rng(19)
+
+    def batches(n):
+        return [tuple(torch.from_numpy(rng.random((2, c, 16, 16)).astype(np.float32)) for c in (4, 3, 3))
+                for _ in range(n)]
+
+    trainer = Watermelon(filter_radius_coefficient=0.45, pad_size=8,
+                         distance_stack=np.linspace(-4e-4, 0.0, 5)[:-1], input_shape=(2, 4, 16, 16),
+                         use_gan=True, perceptual="none", unet_base_features=2, feature_d=2, device="cpu")
+    train, val = batches(2), batches(1)
+    hist = trainer.train(lambda: iter(train), lambda: iter(val), epoch_num=2, info_print_interval=2,
+                         info_plot_interval=1000, checkpoint_iterval=1, discriminator_train_ratio=2,
+                         save_path_G=str(tmp_path / "G.pt"), save_path_D=str(tmp_path / "D.pt"),
+                         loss_metrics_file=str(tmp_path / "hist.json"))
+    assert hist["n_batch"] == [2, 4] and hist["n_train"] == [4, 8]
+    for k in ("focal_phase_gradient_loss", "G_loss", "D_loss"):
+        assert len(hist["train_losses_tensor"][k]) == 2
+        assert np.isfinite(hist["train_losses_tensor"][k]).all()
+    assert hist["validate_losses_tensor"]["D_loss"] == [0.0, 0.0]
+    assert os.path.exists(tmp_path / "G_epoch1.pt") and os.path.exists(tmp_path / "D.pt")
+    # per-network checkpoints load back into a fresh trainer's state
+    other = Watermelon(filter_radius_coefficient=0.45, pad_size=8,
+                       distance_stack=np.linspace(-4e-4, 0.0, 5)[:-1], input_shape=(2, 4, 16, 16),
+                       use_gan=True, perceptual="none", unet_base_features=2, feature_d=2, device="cpu",
+                       pretrained_model_path_G=str(tmp_path / "G.pt"),
+                       pretrained_model_path_D=str(tmp_path / "D.pt"))
+    other._init_state(1, 1e-3, 1e-3)
+    for a, b in zip(trainer.state.generator.state_dict().values(), other.state.generator.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert ckpt.epoch_path("a/G.pth", 3) == "a/G_epoch3.pth"
+
+
+def _jax_training_parser():
+    """trainingModel.py's parser, built by its own code (it lives under the
+    script's __main__ guard)."""
+    import argparse
+    import ast
+
+    src = open(os.path.join(REPO, "trainingModel.py")).read()
+    main = next(n for n in ast.parse(src).body if isinstance(n, ast.If))
+    body = [n for n in main.body if not (isinstance(n, ast.Expr) and isinstance(n.value, ast.Call)
+                                          and getattr(n.value.func, "id", "") == "train_gan")]
+    scope = {"argparse": argparse}
+    exec(compile(ast.Module(body=body, type_ignores=[]), "trainingModel.py", "exec"), scope)
+    return scope["parser"]
+
+
+def test_training_model_flag_parity():
+    """Every trainingModel.py flag, with the same type, default, choices and
+    required-ness, plus --device (default cuda)."""
+    def table(parser):
+        return {a.dest: (tuple(a.option_strings), a.type, a.default, tuple(a.choices or ()), a.required,
+                         type(a).__name__) for a in parser._actions if a.dest != "help"}
+
+    jax_flags, port_flags = table(_jax_training_parser()), table(training_model.build_parser())
+    assert set(port_flags) - set(jax_flags) == {"device"}
+    for dest, want in jax_flags.items():
+        assert port_flags[dest] == want, dest
+    assert port_flags["device"][2] == "cuda"
+
+
+UNPORTED_TRAINING_FLAGS = [
+    ["--dtype", "bfloat16"], ["--mesh_devices", "2"], ["--spatial_mesh_devices", "2"],
+    ["--two_h_hat"], ["--remat"], ["--no_cache_h"], ["--polyphase_level0"],
+    ["--resume_dir", "r"], ["--freeze_part1"], ["--pretrained_part1", "p"],
+    ["--pretrained_part2", "p"], ["--device_resident_data"], ["--critic_batching", "separate"],
+]
+
+
+@pytest.mark.parametrize("extra", UNPORTED_TRAINING_FLAGS, ids=lambda e: e[0].lstrip("-"))
+def test_training_model_refuses_what_is_not_ported(tmp_path, extra):
+    with pytest.raises(NotImplementedError, match=extra[0]):
+        training_model.main(_train_argv(tmp_path, extra))
+
+
+def test_batches_match_jax_loader(tmp_path):
+    """Same seed, same shuffle: both CLIs draw the same batches."""
+    from learned_hologram_gan_tpu.data import memmap as jmemmap
+    from learned_hologram_gan_tpu_torch.data import ImgDepthAmpPhsDataset, batch_indices, epoch_loader
+
+    for kw in (dict(shuffle=True, drop_last=True, seed=122732), dict(shuffle=False, drop_last=False)):
+        got = [b.tolist() for b in batch_indices(10, 4, **kw)]
+        assert got == [b.tolist() for b in jmemmap.batch_indices(10, 4, **kw)]
+    argv = _write_training_bins(tmp_path, hw=8, n_train=5)
+    paths = [argv[i + 1] for i in range(0, 8, 2)]
+    ds = ImgDepthAmpPhsDataset(*paths, samples_num=5, height=8, width=8)
+    jds = jmemmap.ImgDepthAmpPhsDataset(*paths, samples_num=5, height=8, width=8)
+    batches = list(epoch_loader(ds, 2, shuffle=True, drop_last=True, seed=3, device="cpu"))
+    assert len(batches) == 2
+    for got, idx in zip(batches, jmemmap.batch_indices(5, 2, shuffle=True, drop_last=True, seed=3)):
+        want = jmemmap.gather_batch(jds, idx)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+    with pytest.raises(IndexError, match="Index out of range"):
+        ds[5]
+
+
+def test_training_model_defaults_to_cuda():
+    args = training_model.build_parser().parse_args([
+        "--train_img_path", "a", "--train_depth_path", "b", "--train_amp_path", "c",
+        "--train_phs_path", "d", "--validate_img_path", "e", "--validate_depth_path", "f",
+        "--validate_amp_path", "g", "--validate_phs_path", "h", "--samplesNum", "4",
+        "--channlesNum", "3", "--height", "384", "--width", "384", "--save_path_G", "G",
+        "--save_path_D", "D", "--loss_metrics_file", "m", "--save_path_img", "i"])
+    assert args.device == "cuda"
+    assert (args.batch_size, args.unet_base_features, args.critic_batching) == (4, 64, "pair")
 
 
 BLOCKER = r"""

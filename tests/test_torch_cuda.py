@@ -7,9 +7,10 @@ conftest::
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
-Tolerance for K1 against its plain version: relative to max |plain|, 1e-4
-at worst and 1e-5 at the 99.9th percentile (float32 FFT rounding over three
-transforms is ~1e-6; H is computed in the same f32 operation order).
+Tolerance for K1, K2 and K3 against their plain versions: relative to
+max |plain|, 1e-4 at worst and 1e-5 at the 99.9th percentile (float32 FFT
+rounding over a few 1024-point transforms is ~1e-6; H is computed in the
+same f32 operation order on both sides).
 """
 
 import numpy as np
@@ -19,9 +20,11 @@ import torch
 from learned_hologram_gan_tpu_torch import card_check
 from learned_hologram_gan_tpu_torch.config import OpticsConfig
 from learned_hologram_gan_tpu_torch.ops import asm
-from learned_hologram_gan_tpu_torch.ops.cuda import spectral
+from learned_hologram_gan_tpu_torch.ops.cuda import fft, spectral
 
 pytestmark = pytest.mark.cuda
+
+MAX_REL, P999_REL = 1e-4, 1e-5
 
 
 @pytest.fixture
@@ -31,41 +34,111 @@ def device():
     return torch.device("cuda")
 
 
-def _k1_case(device, rows, cols, pad, batch, conj_h, num_d, seed=0):
+def assert_rel_close(kr, ki, rr, ri):
+    err = torch.sqrt((kr - rr) ** 2 + (ki - ri) ** 2).flatten()
+    rel = err / torch.sqrt(rr**2 + ri**2).max()
+    assert float(rel.max()) <= MAX_REL
+    assert float(rel.sort().values[int(0.999 * (rel.numel() - 1))]) <= P999_REL
+
+
+# (conj_h, num_d, from_spectrum, per_plane): the inference modes, then the
+# training ones (the eval step's from_spectrum stack, the random distances)
+MODES = {
+    "backward": (True, 1, False, False),
+    "stack": (False, 3, False, False),
+    "from_spectrum": (False, 3, True, False),
+    "from_spectrum_per_plane": (False, 1, True, True),
+}
+
+
+def _k1_case(device, rows, cols, pad, batch, mode, seed=0):
+    conj_h, num_d, from_spectrum, per_plane = MODES[mode]
     optics = OpticsConfig(rows=rows, cols=cols, pad_size=pad, filter_radius_coefficient=0.45)
-    plan = asm.make_plan(optics, distances=np.linspace(4e-4, 1e-3, num_d), device=device)
+    plan = asm.make_plan(optics, distances=np.linspace(4e-4, 1e-3, 3 if per_plane else num_d),
+                         device=device)
     rng = np.random.default_rng(seed)
-    amp = torch.from_numpy(rng.random((batch, 3, rows, cols)).astype(np.float32)).to(device)
-    phs = torch.from_numpy((2 * np.pi * rng.random((batch, 3, rows, cols))).astype(np.float32)).to(device)
-    return asm.fused_args(plan, asm.field(amp, phs), plan.distances,
-                          conj_h=conj_h, use_mask=not conj_h)
+    shape = (batch, 3) + ((optics.padded_rows, optics.padded_cols) if from_spectrum else (rows, cols))
+    amp = torch.from_numpy(rng.random(shape).astype(np.float32)).to(device)
+    phs = torch.from_numpy((2 * np.pi * rng.random(shape)).astype(np.float32)).to(device)
+    dists = plan.distances[torch.arange(batch, device=device) % 3] if per_plane else plan.distances
+    return asm.fused_args(plan, asm.field(amp, phs), dists, conj_h=conj_h,
+                          from_spectrum=from_spectrum, per_plane=per_plane, use_mask=not conj_h)
 
 
-@pytest.mark.parametrize("rows,cols,pad,batch", [
+GRIDS = [
     (24, 32, 4, 2),      # 32 x 42 grid: tile width 2
     (48, 48, 8, 2),      # 64 x 64
     (384, 384, 320, 1),  # the main path's 1024 x 1024 grid
-])
-@pytest.mark.parametrize("conj_h,num_d", [(True, 1), (False, 3)], ids=["backward", "stack"])
-def test_k1_matches_plain_version(device, rows, cols, pad, batch, conj_h, num_d):
-    args = _k1_case(device, rows, cols, pad, batch, conj_h, num_d)
-    before = spectral.propagate_planes.launches
+]
+
+
+@pytest.mark.parametrize("rows,cols,pad,batch", GRIDS)
+@pytest.mark.parametrize("mode", list(MODES))
+def test_k1_matches_plain_version(device, rows, cols, pad, batch, mode):
+    args = _k1_case(device, rows, cols, pad, batch, mode)
+    before = spectral.row_pass.launches
     kr, ki = spectral.propagate_planes(*args)
     torch.cuda.synchronize()
-    assert spectral.propagate_planes.launches == before + 1
-    rr, ri = spectral.propagate_planes_reference(*args)
-    err = torch.sqrt((kr - rr) ** 2 + (ki - ri) ** 2).flatten()
-    rel = err / torch.sqrt(rr**2 + ri**2).max()
-    assert float(rel.max()) <= 1e-4
-    assert float(rel.sort().values[int(0.999 * (rel.numel() - 1))]) <= 1e-5
+    assert spectral.row_pass.launches == before + 1
+    assert_rel_close(kr, ki, *spectral.propagate_planes_reference(*args))
 
 
-def test_k1_raises_instead_of_falling_back(device):
-    """A CUDA tensor on a grid K1 does not support raises; it never takes
-    the plain version."""
-    args = _k1_case(device, 24, 24, 5, 1, False, 1)  # 34 x 34: not a power of two
+@pytest.mark.parametrize("rows,cols,pad,batch", GRIDS)
+@pytest.mark.parametrize("mode", list(MODES))
+def test_k2_matches_autograd_through_plain_version(device, rows, cols, pad, batch, mode):
+    """K2 (the backward of propagate_planes on the card) against
+    torch.autograd through K1's plain version, on the same cotangent."""
+    fr, fi, *rest = _k1_case(device, rows, cols, pad, batch, mode)
+    fr, fi = fr.requires_grad_(True), fi.requires_grad_(True)
+    kr, ki = spectral.propagate_planes(fr, fi, *rest)
+    rng = np.random.default_rng(1)
+    gr = torch.from_numpy(rng.standard_normal(kr.shape).astype(np.float32)).to(device)
+    gi = torch.from_numpy(rng.standard_normal(kr.shape).astype(np.float32)).to(device)
+    before = spectral.row_adjoint.launches
+    got = torch.autograd.grad((kr * gr + ki * gi).sum(), (fr, fi))
+    torch.cuda.synchronize()
+    assert spectral.row_adjoint.launches == before + 1
+    rr, ri = spectral.propagate_planes_reference(fr, fi, *rest)
+    want = torch.autograd.grad((rr * gr + ri * gi).sum(), (fr, fi))
+    assert_rel_close(*got, *want)
+
+
+@pytest.mark.parametrize("shape", [(12, 1024, 1024), (2, 3, 64, 32), (5, 2, 8)])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fft2", "ifft2"])
+def test_k3_matches_torch_fft(device, shape, inverse):
+    """fft2/ifft2 through K3 against torch.fft, forward and backward (torch's
+    complex convention: the backward of fft2 is N * ifft2)."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                         .astype(np.complex64)).to(device).requires_grad_(True)
+    g = torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                         .astype(np.complex64)).to(device)
+    ours, ref = (fft.ifft2, torch.fft.ifft2) if inverse else (fft.fft2, torch.fft.fft2)
+    before = fft.fft_axis.launches
+    y = ours(x)
+    (gx,) = torch.autograd.grad(y, x, g)
+    torch.cuda.synchronize()
+    assert fft.fft_axis.launches == before + 4
+    y_ref = ref(x)
+    (gx_ref,) = torch.autograd.grad(y_ref, x, g)
+    assert_rel_close(y.real, y.imag, y_ref.real, y_ref.imag)
+    assert_rel_close(gx.real, gx.imag, gx_ref.real, gx_ref.imag)
+
+
+def test_kernels_raise_instead_of_falling_back(device):
+    """A CUDA tensor the kernels do not take raises; it never takes a plain
+    version."""
+    args = _k1_case(device, 24, 24, 5, 1, "stack")  # 34 x 34: not a power of two
     with pytest.raises(ValueError):
         spectral.propagate_planes(*args)
+    fr, fi, wl2, dists, mask, cfg = args
+    g = torch.zeros((3, 3, 24, 34), dtype=torch.complex64, device=device)
+    with pytest.raises(ValueError):
+        spectral.row_adjoint(g, wl2, dists, mask, cfg)  # K2 on the same grid
+    with pytest.raises(ValueError):
+        fft.fft_axis(torch.zeros((2, 48, 64), dtype=torch.complex64, device=device), -2, False, 1.0)
+    with pytest.raises(ValueError):
+        fft.fft2(torch.zeros((2, 64, 64), dtype=torch.complex128, device=device))
 
 
 def test_small_slice_on_card_matches_cpu(device):
@@ -76,3 +149,11 @@ def test_small_slice_on_card_matches_cpu(device):
     stats = card_check.card_vs_cpu(device)
     assert stats["convs"] > 0 and stats["convs_tf32"] == 0
     card_check.check(stats)
+
+
+def test_train_step_on_card_matches_cpu(device):
+    """One GAN train step on the card (K1, K2, K3) against the CPU, from the
+    same weights and draws, TF32 off in every convolution forward and
+    backward."""
+    assert torch.backends.cudnn.allow_tf32  # torch's default, untouched
+    card_check.check_train_step(card_check.train_step_card_vs_cpu(device))

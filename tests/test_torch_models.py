@@ -1,4 +1,5 @@
-"""The port's generator against the JAX package through carried weights.
+"""The port's generator and critic against the JAX package through carried
+weights.
 
 JAX variables are drawn from a seed with numpy, the constant-initialized
 leaves (biases, BatchNorm scale and bias, batch_stats) included so that a
@@ -6,7 +7,9 @@ wrong mapping cannot hide behind zeros and ones, and
 ``convert.generator_state_dict`` carries them into the port.  The JAX side
 runs compiled (``jax.jit``).
 
-Tolerances: the UNet agrees to float32 conv rounding (1e-5).  The POH is a
+Tolerances: the UNet and the critic agree to float32 conv rounding (1e-5;
+1e-4 for the critic in train mode, whose batch statistics sum ~1e3
+terms).  The POH is a
 phase, compared as phasors (a 2*pi wrap is the same SLM state); acos
 amplifies upstream rounding by up to 1/sqrt(1 - A^2) ~ 7 at the normalized
 maximum, so it gets the tests/test_parity_torch.py double-phase bounds.  The
@@ -23,6 +26,7 @@ import torch
 
 from learned_hologram_gan_tpu.config import GeneratorConfig as JaxGenConfig
 from learned_hologram_gan_tpu.models import Generator as JaxGenerator
+from learned_hologram_gan_tpu.models import WGANGPDiscriminator192 as JaxCritic
 from learned_hologram_gan_tpu.models import make_generator_plan as jax_gen_plan
 from learned_hologram_gan_tpu.nn import blocks as jblocks
 from learned_hologram_gan_tpu.ops import asm as jasm
@@ -34,6 +38,7 @@ from learned_hologram_gan_tpu_torch.models import (
     make_generator,
     make_generator_plan,
 )
+from learned_hologram_gan_tpu_torch.models.discriminator import WGANGPDiscriminator192
 from learned_hologram_gan_tpu_torch.nn import blocks
 from learned_hologram_gan_tpu_torch.ops import asm
 
@@ -232,3 +237,101 @@ def test_random_init_follows_jax_scheme():
     std = np.sqrt(2.0 / ((4 + 4) * 9))
     assert 0.5 * std < float(w.std()) < 1.5 * std
     assert float(w.abs().max()) <= 2 * std / 0.87962566103423978 + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm in train mode (flax's statistics), the critic
+# ---------------------------------------------------------------------------
+
+
+def nchw(x):
+    return torch.from_numpy(np.asarray(x)).permute(0, 3, 1, 2)
+
+
+def batch_stats_of(module):
+    """{path: (mean, var)} of every BatchNorm, flax-path keyed."""
+    return {name: (m.running_mean.numpy().copy(), m.running_var.numpy().copy())
+            for name, m in module.named_modules() if isinstance(m, blocks.BatchNorm)}
+
+
+def flax_stats(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if "mean" in v:
+            out[prefix + k] = (np.asarray(v["mean"]), np.asarray(v["var"]))
+        else:
+            out.update(flax_stats(v, prefix + k + "."))
+    return out
+
+
+def assert_stats_close(port_module, jax_tree, rtol=1e-5, atol=1e-6):
+    got, want = batch_stats_of(port_module), flax_stats(jax_tree)
+    assert set(got) == set(want)
+    for k in want:
+        for g, w in zip(got[k], want[k]):
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=k)
+
+
+def test_residual_block_train_mode_updates_stats_as_flax():
+    """Train mode: batch-statistics output and the running-stat update with
+    the biased variance and momentum 0.99, against flax's mutable apply,
+    from randomized batch_stats."""
+    rng = np.random.default_rng(20)
+    x = rng.standard_normal((3, 6, 6, 2)).astype(np.float32) * 2 + 0.5
+    jm = jblocks.ResidualBlock(4, use_1x1conv=True)
+    variables = jax_variables(jm, jnp.asarray(x), train=True)
+    want, mut = jax.jit(lambda v, a: jm.apply(v, a, train=True, mutable=["batch_stats"]))(
+        to_jax(variables), jnp.asarray(x))
+    m = blocks.ResidualBlock(2, 4, use_1x1conv=True).train()
+    m.load_state_dict(convert.generator_state_dict(variables))
+    got = m(nchw(x))
+    np.testing.assert_allclose(got.detach().permute(0, 2, 3, 1).numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    assert_stats_close(m, mut["batch_stats"])
+    # inside frozen_batch_stats the output is the same and nothing updates
+    before = batch_stats_of(m)
+    with blocks.frozen_batch_stats(m):
+        again = m(nchw(x))
+    torch.testing.assert_close(again, got)
+    for k, (mean, var) in batch_stats_of(m).items():
+        np.testing.assert_array_equal(mean, before[k][0])
+        np.testing.assert_array_equal(var, before[k][1])
+
+
+def _critic_pair(seed, feature_d=2, hw=(20, 22)):
+    rng = np.random.default_rng(seed)
+    x = rng.random((3, 3) + hw).astype(np.float32)
+    jm = JaxCritic(feature_d=feature_d)
+    variables = jax_variables(jm, jnp.asarray(x), train=False, seed=seed)
+    m = WGANGPDiscriminator192(feature_d)
+    m.load_state_dict(convert.discriminator_state_dict(variables))
+    return jm, variables, m, x
+
+
+@pytest.mark.parametrize("hw", [(20, 22), (21, 17)], ids=["even", "odd"])
+def test_critic_matches_jax_eval_and_train(hw):
+    """Eval mode (running stats) and train mode (batch stats, the stats
+    update) on inputs whose sizes exercise flax's asymmetric SAME padding
+    of the strided convs."""
+    jm, variables, m, x = _critic_pair(21, hw=hw)
+    want = np.asarray(jax_apply(jm, variables, jnp.asarray(x), train=False))
+    with torch.no_grad():
+        got = m.eval()(torch.from_numpy(x))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+    want, mut = jax.jit(lambda v, a: jm.apply(v, a, train=True, mutable=["batch_stats"]))(
+        to_jax(variables), jnp.asarray(x))
+    with torch.no_grad():
+        got = m.train()(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+    assert_stats_close(m, mut["batch_stats"])
+
+
+def test_critic_weight_carry_is_complete():
+    _, variables, m, _ = _critic_pair(22)
+    sd = convert.discriminator_state_dict(variables)
+    assert set(sd) == set(m.state_dict())
+    n_jax = sum(np.asarray(a).size for a in jax.tree_util.tree_leaves(variables))
+    assert n_jax == sum(t.numel() for k, t in sd.items() if not k.endswith("num_batches_tracked"))
+    assert convert.discriminator_state_dict({"params": {"a": np.ones(1)}})["a"].shape == (1,)

@@ -26,7 +26,7 @@ from learned_hologram_gan_tpu.ops import masks as jmasks
 from learned_hologram_gan_tpu.ops.pallas import spectral as jspectral
 from learned_hologram_gan_tpu_torch.config import OpticsConfig
 from learned_hologram_gan_tpu_torch.ops import asm, masks
-from learned_hologram_gan_tpu_torch.ops.cuda import spectral
+from learned_hologram_gan_tpu_torch.ops.cuda import fft, spectral
 
 WL = (638e-9, 520e-9, 450e-9)
 PITCH = 3.74e-6
@@ -92,29 +92,50 @@ def _planes_inputs(seed, p, rows, cols, num_d):
     return fr, fi, wl2, dists
 
 
-@pytest.mark.parametrize(
-    "conj_h,num_d,use_mask",
-    [(True, 1, False), (False, 3, True)],
-    ids=["backward_d1_nomask", "forward_d3_mask"],
-)
-def test_propagate_planes_plain_matches_jax_interpret(conj_h, num_d, use_mask):
-    """K1's plain version against JAX ``spectral.propagate_planes`` (Pallas
-    interpret mode) in both main-path modes."""
+# (conj_h, from_spectrum, per_plane, num_d, use_mask): the two inference
+# modes, the eval step's from_spectrum stack and the train step's random
+# distances (from_spectrum + per_plane)
+PLANE_MODES = {
+    "backward_d1_nomask": (True, False, False, 1, False),
+    "forward_d3_mask": (False, False, False, 3, True),
+    "from_spectrum_d3_mask": (False, True, False, 3, True),
+    "from_spectrum_per_plane_mask": (False, True, True, 1, True),
+}
+
+
+def _mode_inputs(mode, seed=3):
+    conj_h, from_spectrum, per_plane, num_d, use_mask = PLANE_MODES[mode]
     rows, cols, pad = 24, 32, 4
     optics = JaxOptics(rows=rows, cols=cols, pad_size=pad, filter_radius_coefficient=0.45)
     rp, cp = optics.padded_rows, optics.padded_cols
-    fr, fi, wl2, dists = _planes_inputs(3, 6, rows, cols, num_d)
+    shape = (rp, cp) if from_spectrum else (rows, cols)
+    fr, fi, wl2, _ = _planes_inputs(seed, 6, *shape, 1)
+    n_dists = 6 if per_plane else num_d
+    dists = np.linspace(4e-4, 1e-3, n_dists).astype(np.float32)[:, None]
     mask = np.asarray(jasm.make_plan(optics).mask) if use_mask else None
-    cfg = (PITCH, conj_h, False, False, num_d, rp, cp, (pad, rows, optics.pad_cols, cols))
-    jr, ji = jax.jit(lambda *a: jspectral.propagate_planes(*a, cfg))(
-        jnp.asarray(fr), jnp.asarray(fi), jnp.asarray(wl2), jnp.asarray(dists),
-        None if mask is None else jnp.asarray(mask),
-    )
-    tr, ti = spectral.propagate_planes(
-        torch.from_numpy(fr), torch.from_numpy(fi), torch.from_numpy(wl2),
-        torch.from_numpy(dists), None if mask is None else torch.from_numpy(mask), cfg,
-    )
-    assert tr.shape == (6, num_d, rows, cols)
+    cfg = (PITCH, conj_h, from_spectrum, per_plane, num_d, rp, cp, (pad, rows, optics.pad_cols, cols))
+    return fr, fi, wl2, dists, mask, cfg
+
+
+def _jax_planes(args):
+    *arrays, cfg = args
+    return jax.jit(lambda *a: jspectral.propagate_planes(*a, cfg))(
+        *(None if a is None else jnp.asarray(a) for a in arrays))
+
+
+def _torch(a, grad=False):
+    return None if a is None else torch.from_numpy(a).requires_grad_(grad)
+
+
+@pytest.mark.parametrize("mode", list(PLANE_MODES))
+def test_propagate_planes_plain_matches_jax_interpret(mode):
+    """K1's plain version against JAX ``spectral.propagate_planes`` (Pallas
+    interpret mode) in every mode the slices run."""
+    args = _mode_inputs(mode)
+    num_d = args[-1][4]
+    jr, ji = _jax_planes(args)
+    tr, ti = spectral.propagate_planes(*(_torch(a) for a in args[:-1]), args[-1])
+    assert tr.shape == (6, num_d, 24, 32)
     want = np.asarray(jr) + 1j * np.asarray(ji)
     got = tr.numpy() + 1j * ti.numpy()
     scale = np.abs(want).max()
@@ -123,13 +144,35 @@ def test_propagate_planes_plain_matches_jax_interpret(conj_h, num_d, use_mask):
     assert_close(got.imag, want.imag)
 
 
-def test_propagate_planes_refuses_training_modes():
-    fr, fi, wl2, dists = _planes_inputs(0, 3, 8, 8, 1)
-    args = [torch.from_numpy(a) for a in (fr, fi, wl2, dists)]
-    for from_spectrum, per_plane in ((True, False), (False, True)):
-        cfg = (PITCH, False, from_spectrum, per_plane, 1, 16, 16, (4, 8, 4, 8))
-        with pytest.raises(NotImplementedError):
-            spectral.propagate_planes(*args, None, cfg)
+@pytest.mark.parametrize("mode", list(PLANE_MODES))
+def test_propagate_planes_backward_matches_jax_vjp(mode):
+    """K2's plain version (the backward of the port's autograd Function)
+    against ``jax.vjp`` of JAX ``propagate_planes`` (interpret mode) and
+    against torch.autograd through K1's plain forward, on one cotangent.
+    Relative to max |grad|: the JAX side's split-bf16 GEMMs, ~1e-5."""
+    fr, fi, wl2, dists, mask, cfg = _mode_inputs(mode, seed=4)
+    rng = np.random.default_rng(5)
+    out_shape = (6, cfg[4], 24, 32)
+    gr = rng.standard_normal(out_shape).astype(np.float32)
+    gi = rng.standard_normal(out_shape).astype(np.float32)
+    consts = [None if a is None else jnp.asarray(a) for a in (wl2, dists, mask)]
+    _, vjp = jax.vjp(lambda a, b: jspectral.propagate_planes(a, b, *consts, cfg),
+                     jnp.asarray(fr), jnp.asarray(fi))
+    jdr, jdi = jax.jit(vjp)((jnp.asarray(gr), jnp.asarray(gi)))
+    want = np.asarray(jdr) + 1j * np.asarray(jdi)
+
+    tfr, tfi = _torch(fr, True), _torch(fi, True)
+    rest = [_torch(a) for a in (wl2, dists, mask)]
+    outr, outi = spectral.propagate_planes(tfr, tfi, *rest, cfg)
+    tgr, tgi = torch.from_numpy(gr), torch.from_numpy(gi)
+    dr, di = torch.autograd.grad((outr * tgr + outi * tgi).sum(), (tfr, tfi))
+    got = dr.numpy() + 1j * di.numpy()
+    scale = np.abs(want).max()
+    assert np.max(np.abs(got - want)) / scale <= 5e-5
+
+    pr, pi = spectral.propagate_planes_reference(tfr, tfi, *rest, cfg)
+    ar, ai = torch.autograd.grad((pr * tgr + pi * tgi).sum(), (tfr, tfi))
+    assert np.max(np.abs(ar.numpy() + 1j * ai.numpy() - got)) / scale <= 1e-6
 
 
 def test_k1_support_predicate():
@@ -213,3 +256,96 @@ def test_batch_multi_explicit_distances_match_plan_stack():
         a = asm.propagate_batch_multi(plan, amp, phs)
         b = asm.propagate_batch_multi(plan, amp, phs, torch.tensor(distances, dtype=torch.float32))
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K3: fft2 / ifft2
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fft2", "ifft2"])
+def test_fft2_function_matches_numpy_and_torch_autograd(inverse):
+    """K3's Function on the CPU (its plain version): the forward against
+    numpy.fft, the backward against torch.fft's own autograd (torch's
+    complex convention: fft2's backward is N * ifft2)."""
+    rng = np.random.default_rng(40)
+    x = (rng.standard_normal((2, 3, 16, 8)) + 1j * rng.standard_normal((2, 3, 16, 8))).astype(np.complex64)
+    g = (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape)).astype(np.complex64)
+    ours, ref, npf = ((fft.ifft2, torch.fft.ifft2, np.fft.ifft2) if inverse
+                      else (fft.fft2, torch.fft.fft2, np.fft.fft2))
+    assert fft.supported(16, 8)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = ours(xt)
+    np.testing.assert_allclose(y.detach().numpy(), npf(x.astype(np.complex128)), rtol=0,
+                               atol=1e-5 * np.abs(npf(x)).max())
+    (gx,) = torch.autograd.grad(y, xt, torch.from_numpy(g))
+    (gx_ref,) = torch.autograd.grad(ref(xt), xt, torch.from_numpy(g))
+    torch.testing.assert_close(gx, gx_ref, rtol=1e-5, atol=1e-5 * float(gx_ref.abs().max()))
+
+
+def test_fft2_gradcheck_float64():
+    x = torch.randn(2, 8, 4, dtype=torch.complex128, generator=torch.Generator().manual_seed(41),
+                    requires_grad=True)
+    assert torch.autograd.gradcheck(fft.fft2, (x,))
+    assert torch.autograd.gradcheck(fft.ifft2, (x,))
+
+
+def test_k3_support_predicate():
+    assert fft.supported(1024, 1024) and fft.supported(64, 2)
+    assert not fft.supported(34, 32)  # not a power of two: torch.fft, by predicate
+    assert not fft.supported(65536, 64)  # one line would overflow shared memory
+    x = torch.ones((1, 34, 32), dtype=torch.complex64)
+    torch.testing.assert_close(fft.fft2(x), torch.fft.fft2(x))
+
+
+# ---------------------------------------------------------------------------
+# The training slice's spectrum primitives, drawn indices injected
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("grid", ["fused", "composable"])
+def test_spectrum_primitives_match_jax(grid, backend):
+    """propagate_poh2freq_forward, filter_ap2filtered_freq,
+    freq2ap_all_distances and freq2ap_random_distances, with JAX's drawn
+    distance indices handed to the port."""
+    distances = np.linspace(-4e-4, 0.0, 5)[:-1]
+    jplan, plan = _plans(grid, distances)
+    jgen, gen = _plans(grid, [1e-3])
+    amp, phs = _fields(grid, 15)
+    _, poh = _fields(grid, 16)
+    key = jax.random.key(17)
+
+    def jax_side(jgen, jplan, poh, amp, phs, key):
+        hat = jasm.propagate_poh2freq_forward(jgen, poh)
+        tgt = jasm.filter_ap2filtered_freq(jplan, amp, phs / (2 * np.pi))
+        both = jnp.concatenate([hat, tgt])
+        return hat, tgt, jasm.freq2ap_all_distances(jplan, both), jasm.freq2ap_random_distances(jplan, both, key)
+
+    jhat, jtgt, (jall_a, jall_p), (jr_a, jr_p) = _on_backend(
+        backend, jax_side, jgen, jplan, jnp.asarray(poh), jnp.asarray(amp), jnp.asarray(phs), key)
+    idx = torch.from_numpy(np.asarray(jax.random.permutation(key, len(distances))[:2]))
+
+    hat = asm.propagate_poh2freq_forward(gen, torch.from_numpy(poh))
+    tgt = asm.filter_ap2filtered_freq(plan, torch.from_numpy(amp), torch.from_numpy(phs) / (2 * np.pi))
+    scale = np.abs(np.asarray(jhat)).max()
+    assert np.abs(hat.numpy() - np.asarray(jhat)).max() <= 1e-5 * scale
+    assert np.abs(tgt.numpy() - np.asarray(jtgt)).max() <= 1e-5 * np.abs(np.asarray(jtgt)).max()
+    both = torch.cat([hat, tgt])
+    for (a, p), (ja, jp) in (
+        (asm.freq2ap_all_distances(plan, both), (jall_a, jall_p)),
+        (asm.freq2ap_random_distances(plan, both, idx), (jr_a, jr_p)),
+    ):
+        ja, jp = np.asarray(ja), np.asarray(jp)
+        assert a.shape == ja.shape
+        assert_close(a.numpy(), ja)
+        d = np.abs(np.exp(1j * p.numpy()) - np.exp(1j * jp))
+        assert np.max(d[ja > 1e-3 * ja.max()]) <= 2e-2
+
+
+def test_random_distance_draw():
+    _, plan = _plans("fused", np.linspace(-4e-4, 0.0, 5)[:-1])
+    idx = asm.draw_distance_indices(plan, 3, torch.Generator().manual_seed(0))
+    assert idx.shape == (3,) and len(set(idx.tolist())) == 3 and int(idx.max()) < 4
+    with pytest.raises(ValueError, match="batch <= num_distances"):
+        asm.draw_distance_indices(plan, 5)
