@@ -25,7 +25,10 @@ fixed seed: inference (RGBD -> POH -> 3-plane focal stack, the path of
      after; then steps/s, peak memory and a split of one step by CUDA events
      and by ``torch.profiler`` (phases 3 and 5 of the training slice live in
      ``learned_hologram_gan_tpu_torch/train_smoke.py``);
-  6. both paths at a small size on the card (kernels) against the CPU
+  6. the fused eval path (``generator_apply_fused``, K5 on every block)
+     against the module path, K5 and K4 against their plain versions
+     (``learned_hologram_gan_tpu_torch/fused_smoke.py``);
+  7. the three paths at a small size on the card (kernels) against the CPU
      (plain versions), same weights and draws (``card_check``).
 
 It raises on any failure.  It prints the kernels' JSON line and then, as
@@ -331,6 +334,11 @@ def phase_small_vs_cpu():
           "{convs_backward} backwards; launches K1 {k1_launches}, K2 {k2_launches}, K3 "
           "{k3_launches}".format(**stats), flush=True)
     card_check.check_train_step(stats)
+    stats = card_check.fused_card_vs_cpu("cuda")
+    print("small fused generator, card (K5) vs CPU (plain): POH phasor mean {poh_mean:.2e} "
+          "p99 {poh_p99:.2e} max {poh_max:.2e}; K5 launches {k5_launches} (polyphase "
+          "{k5_launches_polyphase})".format(**stats), flush=True)
+    card_check.check_fused(stats)
 
 
 def main():
@@ -339,8 +347,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr, flush=True)
         return 1
-    from learned_hologram_gan_tpu_torch import train_smoke
-    from learned_hologram_gan_tpu_torch.ops.cuda import build, fft, spectral
+    from learned_hologram_gan_tpu_torch import fused_smoke, train_smoke
+    from learned_hologram_gan_tpu_torch.ops.cuda import build, conv_block, fft, spectral, transfer
 
     t0 = time.perf_counter()
 
@@ -358,17 +366,19 @@ def main():
 
     with Phase("build"):
         start = time.perf_counter()
-        results = build.build_libraries([spectral.KERNEL_NAME, fft.KERNEL_NAME])
+        results = build.build_libraries([spectral.KERNEL_NAME, fft.KERNEL_NAME,
+                                         transfer.KERNEL_NAME, conv_block.KERNEL_NAME])
         print(f"nvcc ({' '.join(build.NVCC_FLAGS)}), one process per source: "
               f"{time.perf_counter() - start:.1f} s wall", flush=True)
         for res in results.values():
             print(f"{res.path.name}: {'cached' if res.cached else 'built'} in {res.seconds:.1f} s",
                   flush=True)
             for line in res.log.splitlines():
-                if "ptxas" in line:
+                if "ptxas" in line or "spill" in line:
                     print(line.strip(), flush=True)
+        for mod in (fft, transfer, conv_block):
+            mod._kernel_fn()
         spectral._kernel_fns()
-        fft._kernel_fn()
 
     with Phase("kernels vs plain versions: inference (batch 16)"):
         k1 = phase_kernels(card)
@@ -376,23 +386,37 @@ def main():
     with Phase("kernels vs plain versions: training (batch 4, 20 distances)"):
         train_kernels = train_smoke.training_kernels(card)
 
+    # K4 lies on no path: its count over the three main paths' runs must stay 0
     with Phase("main path: generate_poh at full width, then batch-16 rate"):
+        transfer.reset_launch_counts()
         k1["launches"] = phase_slice(card)
+        k4_launches = transfer.apply_transfer_stack.launches
 
     with Phase("main path: training_model --use_gan at full width"):
+        transfer.reset_launch_counts()
         launches = train_smoke.training_path(card)
+        k4_launches += transfer.apply_transfer_stack.launches
     modes = launches["k1_modes"]
     train_kernels["k1_train"]["launches"] = modes["from_spectrum+per_plane"] + modes["from_spectrum"]
     train_kernels["k2"]["launches"] = launches["k2"]
     train_kernels["k3"]["launches"] = launches["k3"]
+
+    with Phase("fused eval path: K5 and K4 vs plain versions, then the path at batch 16"):
+        k5 = fused_smoke.k5_kernel(card)
+        k4 = fused_smoke.k4_kernel(card)
+        k5_launches, k4_fused = fused_smoke.fused_path(card)
+    k4_launches += k4_fused
+    if k4_launches:
+        raise AssertionError(f"K4 launched {k4_launches} times on the main paths, want 0")
 
     with Phase("small slices: card vs CPU"):
         phase_small_vs_cpu()
 
     print(f"total wall {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [k1, train_kernels["k1_train"], train_kernels["k2"],
-                                  train_kernels["k3"]]}), flush=True)
+    kernels = [k1, train_kernels["k1_train"], train_kernels["k2"], train_kernels["k3"],
+               dict(k4.json(), launches=k4_launches), dict(k5.json(), launches=k5_launches)]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """PyTorch and CUDA port of ``learned_hologram_gan_tpu`` for NVIDIA Hopper.
 
-RGBD -> phase-only hologram -> focal stack, and the WGAN-GP training of
-the generator, with the fused ASM propagation (kernel K1), its backward
-(K2) and the one-axis FFT (K3) written in CUDA (``csrc/``).  Imports torch,
+RGBD -> phase-only hologram -> focal stack, the WGAN-GP training of the
+generator and the fused eval forward (``models.generator_apply_fused``),
+with the fused ASM propagation (kernel K1), its backward (K2), the
+one-axis FFT (K3), the transfer-stack apply (K4) and the BN-folded
+residual block (K5) written in CUDA (``csrc/``).  Imports torch,
 numpy and the standard library only; entry points run on ``cuda`` unless
 asked for the CPU.  The command-line entry points are ``generate_poh.py``
 and ``training_model.py``.

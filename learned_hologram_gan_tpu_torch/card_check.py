@@ -18,7 +18,12 @@ GP alphas, and :func:`check_train_step` raises unless the metrics, both
 nets' gradients and BatchNorm statistics agree within the bounds below and
 every convolution, forward and backward, ran with TF32 off.
 
-``chip_smoke.py`` and ``tests/test_torch_cuda.py`` call both.
+:func:`fused_card_vs_cpu` runs ``generator_apply_fused`` (K5 on the card), plain and with ``polyphase_level0``, from the same seeded
+weights and non-trivial BatchNorm statistics on the card and on the CPU;
+:func:`check_fused` holds the POHs to the phasor bounds above and counts
+K5's launches.
+
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` call all three.
 """
 
 from __future__ import annotations
@@ -52,6 +57,10 @@ TRAIN = dict(hw=32, pad=16, unet_base=4, feature_d=2, batch=2, ratio=2, distance
 # apart, and its running mean moves by momentum 0.01 times that, 2e-5
 # (measured 1.97e-5 on the H100): atol 5e-5 on top of rtol 1e-3.
 METRIC_RTOL, GRAD_TOL, STATS_RTOL, STATS_ATOL = 1e-3, 1e-2, 1e-3, 5e-5
+# the fused eval path: 48 x 48 in a 64 x 64 grid, UNet base 4 (four levels,
+# 48 down to 3), two images; K5 runs all nine residual blocks (four
+# encoder levels, the bottleneck, four decoder levels), seven with polyphase
+FUSED = dict(hw=48, pad=8, unet_base=4, batch=2)
 
 
 @contextlib.contextmanager
@@ -82,6 +91,12 @@ def record_conv_tf32(seen: List[bool], seen_backward: Optional[List[bool]] = Non
     finally:
         for h in handles:
             h.remove()
+
+
+def poh_phasor_errors(got: np.ndarray, want: np.ndarray) -> tuple:
+    """Mean, p99 and max of |exp(i got) - exp(i want)|."""
+    d = np.abs(np.exp(1j * np.asarray(got, np.float64)) - np.exp(1j * np.asarray(want, np.float64)))
+    return float(d.mean()), float(np.quantile(d, 0.99)), float(d.max())
 
 
 def card_vs_cpu(device: str | torch.device = "cuda", seed: int = 3) -> dict:
@@ -115,10 +130,10 @@ def card_vs_cpu(device: str | torch.device = "cuda", seed: int = 3) -> dict:
             tf32, launches = seen, spectral.row_pass.launches - before
             outs[run] = (result["poh"].cpu().double().numpy(), result["focal_stack"].cpu().numpy())
     (cpu_poh, cpu_stack), (card_poh, card_stack) = outs[0], outs[1]
-    d = np.abs(np.exp(1j * card_poh) - np.exp(1j * cpu_poh))
+    poh_mean, poh_p99, poh_max = poh_phasor_errors(card_poh, cpu_poh)
     s = np.abs(card_stack - cpu_stack)
     return dict(
-        poh_mean=float(d.mean()), poh_p99=float(np.quantile(d, 0.99)), poh_max=float(d.max()),
+        poh_mean=poh_mean, poh_p99=poh_p99, poh_max=poh_max,
         stack_p999=float(np.quantile(s, 0.999)), stack_max=float(s.max()),
         convs=len(tf32), convs_tf32=int(sum(tf32)), k1_launches=launches,
     )
@@ -254,3 +269,71 @@ def check_train_step(stats: dict) -> None:
             problems.append(f"{name.upper()} did not launch")
     if problems:
         raise AssertionError("train step: card and CPU disagree: " + "; ".join(problems))
+
+
+def randomize_batch_norms(module: nn.Module, rng: np.random.Generator) -> nn.Module:
+    """Give every BatchNorm of ``module`` seeded scale, bias and running
+    statistics away from (1, 0, 0, 1), so that folding them is exercised."""
+    from .nn.blocks import BatchNorm
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                n = m.num_features
+                for t, draw in ((m.weight, rng.uniform(0.5, 1.5, n)), (m.bias, rng.normal(0, 0.1, n)),
+                                (m.running_mean, rng.normal(0, 0.1, n)),
+                                (m.running_var, rng.uniform(0.5, 1.5, n))):
+                    t.copy_(torch.from_numpy(draw.astype(np.float32)))
+    return module
+
+
+def fused_card_vs_cpu(device: str | torch.device = "cuda", seed: int = 7) -> dict:
+    """The fused eval path, plain and polyphase level 0, on the CPU (K5's
+    plain version) and on ``device`` (K5) from the same weights; returns the
+    worst phasor differences and the card run's K5 launches."""
+    import copy
+
+    from .config import GeneratorConfig
+    from .models import generator_apply_fused, make_generator, make_generator_plan
+    from .ops.cuda import conv_block
+
+    f = FUSED
+    cfg = GeneratorConfig(rows=f["hw"], cols=f["hw"], pad_size=f["pad"],
+                          unet_base_features=f["unet_base"])
+    rng = np.random.default_rng(seed)
+    model = randomize_batch_norms(make_generator(cfg, seed=seed, device="cpu"), rng)
+    rgbd = rng.random((f["batch"], 4, f["hw"], f["hw"])).astype(np.float32)
+    pohs = []
+    for dev in ("cpu", str(device)):
+        m = copy.deepcopy(model).to(dev)
+        plan = make_generator_plan(cfg, device=dev)
+        x = torch.from_numpy(rgbd).to(dev)
+        conv_block.reset_launch_counts()
+        launches = []
+        pohs.append([])
+        for poly in (False, True):
+            before = conv_block.fused_residual_block.launches
+            poh = generator_apply_fused(m, plan, x, polyphase_level0=poly)
+            launches.append(conv_block.fused_residual_block.launches - before)
+            pohs[-1].append(poh.cpu().numpy())
+    errs = [poh_phasor_errors(card, cpu) for cpu, card in zip(*pohs)]
+    return dict(
+        poh_mean=max(e[0] for e in errs), poh_p99=max(e[1] for e in errs),
+        poh_max=max(e[2] for e in errs), finite=bool(all(np.isfinite(p).all() for p in pohs[1])),
+        k5_launches=launches[0], k5_launches_polyphase=launches[1],
+    )
+
+
+def check_fused(stats: dict) -> None:
+    """Raise ``AssertionError`` naming every bound that ``stats`` (from
+    :func:`fused_card_vs_cpu`) breaks: the POH phasor bounds, finite output,
+    K5 on all nine blocks (seven with polyphase level 0)."""
+    bounds = [("poh_mean", POH_MEAN_TOL), ("poh_p99", POH_P99_TOL), ("poh_max", POH_MAX_TOL)]
+    problems = [f"{k} {stats[k]:.3e} > {tol:g}" for k, tol in bounds if not stats[k] <= tol]
+    if not stats["finite"]:
+        problems.append("non-finite POH")
+    if stats["k5_launches"] != 9 or stats["k5_launches_polyphase"] != 7:
+        problems.append(f"K5 launched {stats['k5_launches']} times (polyphase "
+                        f"{stats['k5_launches_polyphase']}), want 9 (7)")
+    if problems:
+        raise AssertionError("fused path: card and CPU disagree: " + "; ".join(problems))

@@ -6,6 +6,7 @@ from .generator import (
     Generator,
     RGBD2AP,
     double_phase_encode,
+    generator_apply_fused,
     make_generator,
     make_generator_plan,
 )
@@ -17,6 +18,7 @@ __all__ = [
     "RGBD2AP",
     "WGANGPDiscriminator192",
     "double_phase_encode",
+    "generator_apply_fused",
     "make_generator",
     "make_generator_plan",
 ]

@@ -8,6 +8,8 @@
   the SLM plane, a shared radially-symmetric per-colour conv on the real
   and imaginary parts, then double-phase encoding.
 * :class:`Generator` composes them (reference generator.py:15-59).
+* :func:`generator_apply_fused` is its eval-only forward with stage 1
+  through the BN-folded fused UNet (``nn/fused_unet.py``, kernel K5).
 
 The propagator state is an explicit :class:`~..ops.asm.PropagatorPlan`
 argument, as in the JAX package.  Layout is NCHW throughout.  Both stages
@@ -96,6 +98,34 @@ class Generator(nn.Module):
     def forward(self, plan: asm.PropagatorPlan, rgbd: torch.Tensor) -> torch.Tensor:
         amp_hat, phs_hat = self.part1(rgbd)
         return self.part2(plan, amp_hat, phs_hat)
+
+
+@torch.no_grad()
+def generator_apply_fused(
+    generator: Generator,
+    plan: asm.PropagatorPlan,
+    rgbd: torch.Tensor,
+    *,
+    polyphase_level0: bool = False,
+) -> torch.Tensor:
+    """Eval-only Generator forward with the fused-UNet fast path.
+
+    The math of ``generator(plan, rgbd)`` in eval mode: stage 1 runs through
+    :func:`~..nn.fused_unet.unet_apply_fused` (BatchNorm folded; every
+    residual block through K5 on a CUDA tensor, through its plain version on
+    a CPU tensor; ``polyphase_level0`` computes level 0 in the
+    space-to-depth phase domain), then the 1.1x amplitude / 2*pi phase
+    split and stage 2 as the module runs it.
+    """
+    from ..nn.fused_unet import unet_apply_fused
+
+    y = unet_apply_fused(
+        generator.part1.unet, rgbd.permute(0, 2, 3, 1), polyphase_level0=polyphase_level0,
+    )
+    y = y.permute(0, 3, 1, 2).float()
+    amp = generator.part1.amplitude_scaler * y[:, :3]
+    phs = (2.0 * np.pi) * y[:, 3:]
+    return generator.part2(plan, amp, phs)
 
 
 def make_generator(

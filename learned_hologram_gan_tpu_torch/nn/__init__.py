@@ -12,6 +12,17 @@ from .blocks import (
     full_f32_convs,
     init_weights,
 )
+from .fused_unet import unet_apply_fused
+from .polyphase import (
+    depth_to_space,
+    poly_concat,
+    poly_conv1x1,
+    poly_conv3x3,
+    poly_pool,
+    poly_upconv_gemm,
+    space_to_depth,
+    tile4,
+)
 
 __all__ = [
     "BatchNorm",
@@ -24,4 +35,13 @@ __all__ = [
     "frozen_batch_stats",
     "full_f32_convs",
     "init_weights",
+    "depth_to_space",
+    "poly_concat",
+    "poly_conv1x1",
+    "poly_conv3x3",
+    "poly_pool",
+    "poly_upconv_gemm",
+    "space_to_depth",
+    "tile4",
+    "unet_apply_fused",
 ]

@@ -10,7 +10,11 @@ conftest::
 Tolerance for K1, K2 and K3 against their plain versions: relative to
 max |plain|, 1e-4 at worst and 1e-5 at the 99.9th percentile (float32 FFT
 rounding over a few 1024-point transforms is ~1e-6; H is computed in the
-same f32 operation order on both sides).
+same f32 operation order on both sides).  K4 and K5 are held to the same
+bound: K4 repeats the plain version's float32 theta and differs only in
+sincosf against torch's cos/sin (~1 ulp); K5 sums the same float32 products
+as cuDNN with TF32 off, in another order (~1e-6 of the largest output over
+9 * Cin terms).
 """
 
 import numpy as np
@@ -20,7 +24,7 @@ import torch
 from learned_hologram_gan_tpu_torch import card_check
 from learned_hologram_gan_tpu_torch.config import OpticsConfig
 from learned_hologram_gan_tpu_torch.ops import asm
-from learned_hologram_gan_tpu_torch.ops.cuda import fft, spectral
+from learned_hologram_gan_tpu_torch.ops.cuda import conv_block, fft, spectral, transfer
 
 pytestmark = pytest.mark.cuda
 
@@ -157,3 +161,70 @@ def test_train_step_on_card_matches_cpu(device):
     backward."""
     assert torch.backends.cudnn.allow_tf32  # torch's default, untouched
     card_check.check_train_step(card_check.train_step_card_vs_cpu(device))
+
+
+# (B, H, W, Cin, Cout): tile-aligned; H and W not multiples of the 8 x 32
+# tile with Cin != Cout; more output channels than one 64-channel tile and
+# more input channels than one 16-channel chunk, both ragged; enc_0's 4 -> 64
+K5_SHAPES = [(2, 16, 32, 8, 8), (3, 13, 37, 5, 12), (1, 20, 12, 40, 72), (2, 24, 40, 4, 64)]
+
+
+@pytest.mark.parametrize("shape", K5_SHAPES)
+def test_k5_matches_plain_version(device, shape):
+    b, h, w, cin, cout = shape
+    rng = np.random.default_rng(3)
+
+    def draw(*s, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(s)).astype(np.float32)).to(device)
+
+    args = (draw(b, h, w, cin), draw(3, 3, cin, cout, scale=(9 * cin) ** -0.5), draw(cout),
+            draw(3, 3, cout, cout, scale=(9 * cout) ** -0.5), draw(cout),
+            draw(cin, cout, scale=cin ** -0.5), draw(cout))
+    before = conv_block.fused_residual_block.launches
+    got = conv_block.fused_residual_block(*args)
+    torch.cuda.synchronize()
+    assert conv_block.fused_residual_block.launches == before + 1
+    want = conv_block.residual_block_reference(*args)
+    assert got.shape == want.shape == (b, h, w, cout)
+    zeros = torch.zeros_like(want)
+    assert_rel_close(got, zeros, want, zeros)
+
+
+@pytest.mark.parametrize("rows,cols,batch,num_d", [(16, 16, 2, 3), (32, 48, 1, 1), (1024, 1024, 1, 4)])
+def test_k4_matches_plain_version(device, rows, cols, batch, num_d):
+    optics = OpticsConfig(rows=rows, cols=cols, pad_size=0, filter_radius_coefficient=0.45)
+    ds = np.linspace(-4e-4, 1e-3, num_d).astype(np.float32)
+    plan = asm.make_plan(optics, distances=ds, device=device)
+    rng = np.random.default_rng(4)
+    shape = (batch, 3, rows, cols)
+    g0 = torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                          .astype(np.complex64)).to(device)
+    args = (g0, plan.w_grid, plan.mask, plan.distances)
+    before = transfer.apply_transfer_stack.launches
+    got = transfer.apply_transfer_stack(*args)
+    torch.cuda.synchronize()
+    assert transfer.apply_transfer_stack.launches == before + 1
+    want = transfer.apply_transfer_stack_reference(*args)
+    assert got.shape == want.shape == (batch, num_d, 3, rows, cols)
+    assert_rel_close(got.real, got.imag, want.real, want.imag)
+
+
+def test_k4_k5_raise_instead_of_falling_back(device):
+    x = torch.zeros((1, 8, 8, 4), device=device)
+    w1, w2, w3, b = (torch.zeros(s, device=device) for s in ((3, 3, 4, 8), (3, 3, 8, 8), (4, 8), (8,)))
+    with pytest.raises(ValueError):
+        conv_block.fused_residual_block(x.double(), w1, b, w2, b, w3, b)
+    with pytest.raises(ValueError):
+        conv_block.fused_residual_block(x, w1, b, w1, b, w3, b)  # w2 of the wrong shape
+    g0 = torch.zeros((1, 3, 16, 16), dtype=torch.complex64, device=device)
+    w_grid, mask = torch.zeros((3, 16, 16), device=device), torch.ones((16, 16), device=device)
+    with pytest.raises(ValueError):
+        transfer.apply_transfer_stack(g0, w_grid, mask, torch.zeros(2, device=device).double())
+    with pytest.raises(ValueError):
+        transfer.apply_transfer_stack(g0.to(torch.complex128), w_grid, mask, torch.zeros(2, device=device))
+
+
+def test_fused_generator_on_card_matches_cpu(device):
+    """generator_apply_fused at 48 x 48 on the card (K5 on
+    all nine blocks, seven with polyphase level 0) against the CPU."""
+    card_check.check_fused(card_check.fused_card_vs_cpu(device))
