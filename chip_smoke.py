@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card at full width, 384 x 384 input,
-pad 320 (1024 x 1024 padded grid), UNet base 64, float32, weights from a
-fixed seed: inference (RGBD -> POH -> 3-plane focal stack, the path of
-``generatePOH.py --propagate``) and GAN training (``trainingModel.py
---use_gan``: critic feature_d 32, 20 distances, batch 4, ratio 5).  Phases:
+Drives the port's paths on the card at full width, 384 x 384 input, pad
+320 (1024 x 1024 padded grid), UNet base 64, weights from a fixed seed, in
+float32 and then in bfloat16 (``--dtype bfloat16``, bench.py's
+configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
+``generatePOH.py --propagate``), the fused eval path, and GAN training
+(``trainingModel.py --use_gan``: critic feature_d 32, 20 distances, batch
+4, ratio 5).  Phases:
 
   1. environment: Python, torch, CUDA, nvcc, the card's name and power limit;
   2. build every kernel from ``csrc/`` with nvcc, one process per source,
@@ -28,14 +30,24 @@ fixed seed: inference (RGBD -> POH -> 3-plane focal stack, the path of
   6. the fused eval path (``generator_apply_fused``, K5 on every block)
      against the module path, K5 and K4 against their plain versions
      (``learned_hologram_gan_tpu_torch/fused_smoke.py``);
-  7. the three paths at a small size on the card (kernels) against the CPU
-     (plain versions), same weights and draws (``card_check``).
+  7. bfloat16 inference at bench.py's configuration: ``generate_poh.main
+     --dtype bfloat16``, then the batch-16 pipeline timed as bench.py times
+     it, median and spread of 5 trials of 10
+     (``learned_hologram_gan_tpu_torch/bf16_smoke.py``);
+  8. the bfloat16 fused eval path, K5's bfloat16 variant on all nine blocks
+     against its plain version and the cuDNN bfloat16 chain;
+  9. bfloat16 training through ``training_model.main --use_gan --dtype
+     bfloat16 --perceptual random``;
+  10. the three paths at a small size on the card (kernels) against the CPU
+     (plain versions), same weights and draws (``card_check``), in float32
+     and in bfloat16.
 
 It raises on any failure.  It prints the kernels' JSON line and then, as
 its last line, ``{"ok": true, "device": {...}}``.  It exits non-zero at once
 when CUDA is absent.  It changes no global torch setting: the port keeps its
 float32 convolutions out of TF32 itself, forward and backward, and phases
-4-6 check that.
+4-6 and 9 check that; phases 7-10 check that the bfloat16 paths ran their
+generator and critic convolutions in bfloat16.
 """
 
 import importlib.metadata
@@ -316,28 +328,31 @@ def phase_slice(card):
     return launches
 
 
-def phase_small_vs_cpu():
+def phase_small_vs_cpu(dtype):
     from learned_hologram_gan_tpu_torch import card_check
 
-    stats = card_check.card_vs_cpu("cuda")
-    print("small slice through generate_poh, card (kernels) vs CPU (plain): POH phasor "
-          "mean {poh_mean:.2e} p99 {poh_p99:.2e} max {poh_max:.2e}; focal stack p99.9 "
-          "{stack_p999:.2e} max {stack_max:.2e}; TF32 on in {convs_tf32} of {convs} "
-          "convolutions; K1 launches {k1_launches}".format(**stats), flush=True)
+    stats = card_check.card_vs_cpu("cuda", dtype=dtype)
+    print("small slice through generate_poh ({dtype}), card (kernels) vs CPU (plain): POH "
+          "phasor mean {poh_mean:.2e} p99 {poh_p99:.2e} max {poh_max:.2e}, JAX gate form "
+          "{poh_gate:.2e}; focal stack p99.9 {stack_p999:.2e} max {stack_max:.2e}; TF32 on in "
+          "{convs_tf32} of {convs} convolutions, computed in {conv_dtypes}; K1 launches "
+          "{k1_launches}".format(**stats), flush=True)
     card_check.check(stats)
-    stats = card_check.train_step_card_vs_cpu("cuda")
+    stats = card_check.train_step_card_vs_cpu("cuda", dtype=dtype)
     metrics = "; ".join(f"{k} {a:.6g} / {b:.6g}" for k, (a, b) in stats["metrics"].items())
-    print(f"small train step, CPU / card: {metrics}", flush=True)
-    print("small train step, card vs CPU: gradients G {grad_G_rel:.2e} D {grad_D_rel:.2e} of "
-          "max|g|; running stats excess G {stats_G_excess:.2e} D {stats_D_excess:.2e}; TF32 on "
-          "in {convs_forward_tf32} of {convs_forward} forwards, {convs_backward_tf32} of "
-          "{convs_backward} backwards; launches K1 {k1_launches}, K2 {k2_launches}, K3 "
-          "{k3_launches}".format(**stats), flush=True)
+    print(f"small train step ({dtype}), CPU / card: {metrics}", flush=True)
+    print("small train step ({dtype}), card vs CPU: gradients G {grad_G_rel:.2e} D "
+          "{grad_D_rel:.2e} of max|g|; running stats excess G {stats_G_excess:.2e} D "
+          "{stats_D_excess:.2e}; TF32 on in {convs_forward_tf32} of {convs_forward} forwards, "
+          "{convs_backward_tf32} of {convs_backward} backwards; computed in {conv_dtypes}; "
+          "launches K1 {k1_launches}, K2 {k2_launches}, K3 {k3_launches}".format(**stats),
+          flush=True)
     card_check.check_train_step(stats)
-    stats = card_check.fused_card_vs_cpu("cuda")
-    print("small fused generator, card (K5) vs CPU (plain): POH phasor mean {poh_mean:.2e} "
-          "p99 {poh_p99:.2e} max {poh_max:.2e}; K5 launches {k5_launches} (polyphase "
-          "{k5_launches_polyphase})".format(**stats), flush=True)
+    stats = card_check.fused_card_vs_cpu("cuda", dtype=dtype)
+    print("small fused generator ({dtype}), card (K5) vs CPU (plain): POH phasor mean "
+          "{poh_mean:.2e} p99 {poh_p99:.2e} max {poh_max:.2e}, JAX gate form {poh_gate:.2e}; "
+          "K5 launches {k5_launches} (polyphase {k5_launches_polyphase})".format(**stats),
+          flush=True)
     card_check.check_fused(stats)
 
 
@@ -347,7 +362,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr, flush=True)
         return 1
-    from learned_hologram_gan_tpu_torch import fused_smoke, train_smoke
+    from learned_hologram_gan_tpu_torch import bf16_smoke, fused_smoke, train_smoke
     from learned_hologram_gan_tpu_torch.ops.cuda import build, conv_block, fft, spectral, transfer
 
     t0 = time.perf_counter()
@@ -404,18 +419,34 @@ def main():
     with Phase("fused eval path: K5 and K4 vs plain versions, then the path at batch 16"):
         k5 = fused_smoke.k5_kernel(card)
         k4 = fused_smoke.k4_kernel(card)
-        k5_launches, k4_fused = fused_smoke.fused_path(card)
+        k5_launches, k4_fused, _ = fused_smoke.fused_path(card)
     k4_launches += k4_fused
+
+    with Phase("bf16 main path: generate_poh --dtype bfloat16, then bench.py's configuration"):
+        transfer.reset_launch_counts()
+        bf16_smoke.inference(card)
+        k4_launches += transfer.apply_transfer_stack.launches
+
+    with Phase("bf16 fused eval path: K5 bf16 on every block, then vs plain on the nine blocks"):
+        k5_bf16_launches, k4_fused, k5_bf16 = fused_smoke.fused_path(card, "bfloat16")
+    k4_launches += k4_fused
+
+    with Phase("bf16 main path: training_model --use_gan --dtype bfloat16 at full width"):
+        transfer.reset_launch_counts()
+        train_smoke.training_path(card, "bfloat16")
+        k4_launches += transfer.apply_transfer_stack.launches
     if k4_launches:
         raise AssertionError(f"K4 launched {k4_launches} times on the main paths, want 0")
 
-    with Phase("small slices: card vs CPU"):
-        phase_small_vs_cpu()
+    for dtype in ("float32", "bfloat16"):
+        with Phase(f"small slices: card vs CPU, {dtype}"):
+            phase_small_vs_cpu(dtype)
 
     print(f"total wall {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)
     kernels = [k1, train_kernels["k1_train"], train_kernels["k2"], train_kernels["k3"],
-               dict(k4.json(), launches=k4_launches), dict(k5.json(), launches=k5_launches)]
+               dict(k4.json(), launches=k4_launches), dict(k5.json(), launches=k5_launches),
+               dict(k5_bf16.json(), launches=k5_bf16_launches)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

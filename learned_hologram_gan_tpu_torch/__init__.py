@@ -4,7 +4,8 @@ RGBD -> phase-only hologram -> focal stack, the WGAN-GP training of the
 generator and the fused eval forward (``models.generator_apply_fused``),
 with the fused ASM propagation (kernel K1), its backward (K2), the
 one-axis FFT (K3), the transfer-stack apply (K4) and the BN-folded
-residual block (K5) written in CUDA (``csrc/``).  Imports torch,
+residual block (K5, float32 and bfloat16) written in CUDA (``csrc/``),
+in float32 or in bfloat16 (flax's dtype rules).  Imports torch,
 numpy and the standard library only; entry points run on ``cuda`` unless
 asked for the CPU.  The command-line entry points are ``generate_poh.py``
 and ``training_model.py``.

@@ -2,8 +2,8 @@
 ``learned_hologram_gan_tpu/config.py``).
 
 Carried: the padded-grid geometry, the physics constants, the generator
-widths, and the critic, loss and training dataclasses.  The JAX package's
-TPU-only switches (``remat``, ``polyphase_level0``), ``dtype`` and
+widths and compute dtype, and the critic, loss and training dataclasses.
+The JAX package's TPU-only switches (``remat``, ``polyphase_level0``) and
 ``pad_cols_override`` have no counterpart here yet.
 """
 
@@ -67,6 +67,7 @@ class GeneratorConfig:
     amplitude_scaler: float = 1.1  # reference RGBD2AP.py:22
     unet_base_features: int = 64  # reference UNet encoder1 width
     use_modulation: bool = True  # False = ablation fakeChannelWiseSymmetricConv
+    dtype: str = "float32"  # conv compute dtype, "float32" or "bfloat16"; parameters stay float32
 
     def optics(self) -> OpticsConfig:
         return OpticsConfig(
@@ -84,6 +85,7 @@ class DiscriminatorConfig:
     """WGAN-GP patch critic (reference discriminator.py:5-51)."""
 
     feature_d: int = 32
+    dtype: str = "float32"  # conv compute dtype, as GeneratorConfig.dtype
 
 
 @dataclasses.dataclass(frozen=True)

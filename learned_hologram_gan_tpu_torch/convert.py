@@ -14,6 +14,11 @@ the flax names, so each leaf maps by its path:
                                           -> ``weight``/``bias``/``running_mean``
                                              /``running_var``
   ``radial_weights``, ``bias``            -> as they are
+
+Every leaf is float32 on both sides whatever the compute dtype: flax keeps
+its parameters in float32 under ``dtype="bfloat16"`` and casts them at each
+call, and so does the port (nn/blocks.py), so a bfloat16 model carries its
+weights exactly as a float32 one does.
 """
 
 from __future__ import annotations

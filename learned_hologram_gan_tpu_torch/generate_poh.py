@@ -4,8 +4,10 @@
 The port's counterpart of ``generatePOH.py``, with its flags, defaults and
 messages: load an RGBD sample by index -> Generator forward -> save the POH
 -> optionally propagate it with unit amplitude to ``--num_intervals``
-distances and save the normalized stack as PNGs.  Runs on ``--device``
-(``cuda`` unless asked otherwise)::
+distances and save the normalized stack as PNGs.  ``--dtype bfloat16``
+runs the generator's convolutions in bfloat16 (flax's rule: float32
+parameters, float32 propagation).  Runs on ``--device`` (``cuda`` unless
+asked otherwise)::
 
     python -m learned_hologram_gan_tpu_torch.generate_poh --img_path img.bin \\
         --depth_path depth.bin --index 0 --model_path G.pt \\
@@ -85,8 +87,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from .utils.plotting import multi_sample_plotter
 
     args = build_parser().parse_args(argv)
-    if args.dtype != "float32":
-        raise NotImplementedError("--dtype bfloat16 is not ported yet")
     if args.mesh_devices:
         raise NotImplementedError("--mesh_devices is not ported yet")
     device = torch.device(args.device)
@@ -111,6 +111,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         wavelengths=tuple(args.wave_length),
         distance=args.distance,
         unet_base_features=args.unet_base_features,
+        dtype=args.dtype,
     )
     generator = make_generator(gen_config, seed=0, device=device)
     gen_plan = make_generator_plan(gen_config, device=device)

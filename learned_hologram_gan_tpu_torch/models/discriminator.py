@@ -10,6 +10,8 @@ so ``convert.discriminator_state_dict`` maps a flax tree by path.
 
 flax's ``"SAME"`` padding of a stride-2 3x3 conv pads (0, 1) on an even
 input, not torch's symmetric (1, 1): the strided convs pad explicitly.
+``dtype`` is the convolutions' compute dtype (flax's rule, nn/blocks.py);
+the scores come back to float32 (JAX ``models/discriminator.py:41``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.blocks import BatchNorm, _TRUNC_STD
+from ..nn.blocks import BatchNorm, Conv2d, _TRUNC_STD, compute_dtype
 
 _STRIDES = (2, 1, 2, 1, 2)
 
@@ -38,16 +40,17 @@ def _same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
 class WGANGPDiscriminator192(nn.Module):
     """Patch critic for ~192px inputs: (B, 3, H, W) -> (B, patches)."""
 
-    def __init__(self, feature_d: int = 32):
+    def __init__(self, feature_d: int = 32, dtype: str = "float32"):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(3, feature_d, 3, padding=1)
+        dt = compute_dtype(dtype)
+        self.Conv_0 = Conv2d(3, feature_d, 3, padding=1, compute_dtype=dt)
         cin = feature_d
         for i, stride in enumerate(_STRIDES):
             cout = feature_d * 2 ** (i + 1)
-            setattr(self, f"Conv_{i + 1}", nn.Conv2d(cin, cout, 3, stride, padding=0))
+            setattr(self, f"Conv_{i + 1}", Conv2d(cin, cout, 3, stride, padding=0, compute_dtype=dt))
             setattr(self, f"BatchNorm_{i}", BatchNorm(cout))
             cin = cout
-        self.Conv_6 = nn.Conv2d(cin, 1, 3, padding=1)
+        self.Conv_6 = Conv2d(cin, 1, 3, padding=1, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.leaky_relu(self.Conv_0(x), 0.2)
@@ -62,7 +65,7 @@ class FakeDiscriminator(nn.Module):
     """Constant-zero critic with one dummy parameter (reference :54-67),
     for the non-GAN trainers."""
 
-    def __init__(self, feature_d: int = 32):
+    def __init__(self, feature_d: int = 32, dtype: str = "float32"):
         super().__init__()
         self.a = nn.Parameter(torch.ones(1))
 

@@ -12,9 +12,14 @@
   through the BN-folded fused UNet (``nn/fused_unet.py``, kernel K5).
 
 The propagator state is an explicit :class:`~..ops.asm.PropagatorPlan`
-argument, as in the JAX package.  Layout is NCHW throughout.  Both stages
-run their convolutions in full float32 (TF32 off, ``full_f32_convs``),
-whatever the caller's global setting.
+argument, as in the JAX package.  Layout is NCHW throughout.
+``GeneratorConfig.dtype`` is the convolutions' compute dtype, as in the JAX
+package (``models/generator.py:147-158``): the UNet, its up-convs and head,
+and the modulation conv run in it, and the head output and the
+modulation's Re/Im come back to float32; the ASM, the amplitude
+normalization and the double-phase encoding stay float32.  Float32
+convolutions run in full float32 (TF32 off, ``full_f32_convs``), whatever
+the caller's global setting.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from ..nn.blocks import (
     ChannelWiseSymmetricConv,
     FakeChannelWiseSymmetricConv,
     UNet,
+    compute_dtype,
     full_f32_convs,
     init_weights,
 )
@@ -41,10 +47,12 @@ from ..utils.normalize import amplitude_normalizor
 class RGBD2AP(nn.Module):
     """Stage 1: RGBD (B, 4, H, W) -> (amp, phs), each (B, 3, H, W)."""
 
-    def __init__(self, amplitude_scaler: float = 1.1, base_features: int = 64):
+    def __init__(self, amplitude_scaler: float = 1.1, base_features: int = 64,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.amplitude_scaler = amplitude_scaler
-        self.unet = UNet(in_channels=4, output_channels=6, base_features=base_features)
+        self.unet = UNet(in_channels=4, output_channels=6, base_features=base_features,
+                         dtype=dtype)
 
     @full_f32_convs()
     def forward(self, rgbd: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -67,10 +75,11 @@ def double_phase_encode(amp: torch.Tensor, phs: torch.Tensor) -> torch.Tensor:
 class AP2POH(nn.Module):
     """Stage 2: image-plane (amp, phs) -> SLM-plane phase-only hologram."""
 
-    def __init__(self, kernel_size: int = 3, use_modulation: bool = True):
+    def __init__(self, kernel_size: int = 3, use_modulation: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         cls = ChannelWiseSymmetricConv if use_modulation else FakeChannelWiseSymmetricConv
-        self.modulation = cls(kernel_size)
+        self.modulation = cls(kernel_size, dtype)
 
     @full_f32_convs()
     def forward(
@@ -92,8 +101,9 @@ class Generator(nn.Module):
     def __init__(self, config: GeneratorConfig = GeneratorConfig()):
         super().__init__()
         self.config = config
-        self.part1 = RGBD2AP(config.amplitude_scaler, config.unet_base_features)
-        self.part2 = AP2POH(config.kernel_size, config.use_modulation)
+        dtype = compute_dtype(config.dtype)
+        self.part1 = RGBD2AP(config.amplitude_scaler, config.unet_base_features, dtype)
+        self.part2 = AP2POH(config.kernel_size, config.use_modulation, dtype)
 
     def forward(self, plan: asm.PropagatorPlan, rgbd: torch.Tensor) -> torch.Tensor:
         amp_hat, phs_hat = self.part1(rgbd)
@@ -115,12 +125,14 @@ def generator_apply_fused(
     residual block through K5 on a CUDA tensor, through its plain version on
     a CPU tensor; ``polyphase_level0`` computes level 0 in the
     space-to-depth phase domain), then the 1.1x amplitude / 2*pi phase
-    split and stage 2 as the module runs it.
+    split and stage 2 as the module runs it.  The RGBD input enters the
+    UNet in the generator's compute dtype, as the JAX function casts it.
     """
     from ..nn.fused_unet import unet_apply_fused
 
+    unet = generator.part1.unet
     y = unet_apply_fused(
-        generator.part1.unet, rgbd.permute(0, 2, 3, 1), polyphase_level0=polyphase_level0,
+        unet, rgbd.permute(0, 2, 3, 1).to(unet.dtype), polyphase_level0=polyphase_level0,
     )
     y = y.permute(0, 3, 1, 2).float()
     amp = generator.part1.amplitude_scaler * y[:, :3]

@@ -9,6 +9,15 @@ Initialization follows the JAX package's scheme with an explicit
 ``torch.Generator``: truncated-normal Xavier for convs, normal Kaiming
 (fan_out, gain 2) for transposed convs, zero biases, unit BatchNorm scale,
 ``|N(0, 1)|`` radial weights.  Numbers differ from JAX's for the same seed.
+
+Compute dtype, as flax's ``dtype`` (not ``torch.autocast``): parameters
+stay float32; each conv casts its input, kernel and bias to the module's
+compute dtype at the call (flax ``promote_dtype``), so gradients reach the
+float32 parameters through the cast.  In bfloat16 the conv output rounds to
+bfloat16 and the bias adds in bfloat16, as flax adds it; :class:`BatchNorm`
+reduces its statistics in float32, normalizes in float32 and rounds once
+(flax ``_compute_stats`` / ``_normalize``).  Float32 modules take torch's
+fused conv bias and ``F.batch_norm``.
 """
 
 from __future__ import annotations
@@ -30,26 +39,76 @@ BN_MOMENTUM = 0.01
 _TRUNC_STD = 0.87962566103423978
 
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` string."""
+    if name not in DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {name!r}")
+    return DTYPES[name]
+
+
 @contextlib.contextmanager
 def full_f32_convs():
-    """Run cuDNN convolutions in full float32 inside the block.
+    """Accumulate in full float32 inside the block.
 
     By default torch lets cuDNN round float32 convolution inputs to TF32
-    (a 10-bit mantissa).  The port's float32 path keeps full float32, the
-    numerics its tests hold against the JAX package.  The previous setting
-    comes back on exit.  Usable as a decorator.
+    (a 10-bit mantissa), and lets cuBLAS reduce bfloat16 matrix products in
+    reduced precision.  The port keeps full float32 in both, the numerics
+    its tests hold against the JAX package (whose bfloat16 products
+    accumulate in float32).  The previous settings come back on exit.
+    Usable as a decorator.
     """
-    prev = torch.backends.cudnn.allow_tf32
+    matmul = torch.backends.cuda.matmul
+    prev = torch.backends.cudnn.allow_tf32, matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cudnn.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        torch.backends.cudnn.allow_tf32, matmul.allow_bf16_reduced_precision_reduction = prev
 
 
-def _conv(in_ch: int, features: int, kernel: int) -> nn.Conv2d:
+def _bias(b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return b.to(dtype)[:, None, None]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax's compute dtype: float32 parameters, input,
+    kernel and bias cast to ``compute_dtype`` per call."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x.float())
+        return self._conv_forward(x.to(dt), self.weight.to(dt), None) + _bias(self.bias, dt)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with flax's compute dtype, as :class:`Conv2d`."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x.float())
+        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding,
+                               self.output_padding, self.groups, self.dilation)
+        return y + _bias(self.bias, dt)
+
+
+def _conv(in_ch: int, features: int, kernel: int, dtype: torch.dtype = torch.float32) -> Conv2d:
     """flax ``nn.Conv`` with "SAME" padding for k > 1, "VALID" for 1x1."""
-    return nn.Conv2d(in_ch, features, kernel, padding=kernel // 2 if kernel > 1 else 0)
+    return Conv2d(in_ch, features, kernel, padding=kernel // 2 if kernel > 1 else 0,
+                  compute_dtype=dtype)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -62,23 +121,44 @@ class BatchNorm(nn.BatchNorm2d):
     unbiased one, and with momentum 0.99 on the running average.  Inside
     :func:`frozen_batch_stats` train mode leaves the running statistics as
     they are (flax's apply with the update discarded).
+
+    A bfloat16 input takes flax's rule for a bfloat16 BatchNorm: statistics
+    reduce in float32, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
+    runs in float32, and the result rounds once to bfloat16; the running
+    statistics stay float32.  A float32 input takes ``F.batch_norm``.
     """
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.update_stats = True
 
+    def _batch_stats(self, x: torch.Tensor):
+        """Biased float32 batch statistics (``force_float32_reductions``),
+        folded into the running ones unless frozen."""
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
+                self.num_batches_tracked.add_(1)
+        return mean, var
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            if self.training:
+                mean, var = self._batch_stats(x)
+            else:
+                mean, var = self.running_mean, self.running_var
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            y = (x.float() - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+            return y.to(x.dtype)
         if not self.training:
             return super().forward(x)
         if self.update_stats:
             with torch.no_grad():
-                xf = x.float()
-                mean = xf.mean(dim=(0, 2, 3))
-                var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
-                self.num_batches_tracked.add_(1)
+                self._batch_stats(x)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
@@ -104,17 +184,18 @@ def _batch_norm(features: int) -> BatchNorm:
 
 class ResidualBlock(nn.Module):
     """conv3x3-BN-ReLU-conv3x3-BN (+1x1 shortcut) -> add -> ReLU
-    (reference neural_network_components.py:6-32)."""
+    (reference neural_network_components.py:6-32), in compute ``dtype``."""
 
-    def __init__(self, in_ch: int, features: int, use_1x1conv: bool = False):
+    def __init__(self, in_ch: int, features: int, use_1x1conv: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if not use_1x1conv and in_ch != features:
             raise ValueError("an identity shortcut needs in_ch == features")
-        self.Conv_0 = _conv(in_ch, features, 3)
+        self.Conv_0 = _conv(in_ch, features, 3, dtype)
         self.BatchNorm_0 = _batch_norm(features)
-        self.Conv_1 = _conv(features, features, 3)
+        self.Conv_1 = _conv(features, features, 3, dtype)
         self.BatchNorm_1 = _batch_norm(features)
-        self.Conv_2 = _conv(in_ch, features, 1) if use_1x1conv else None
+        self.Conv_2 = _conv(in_ch, features, 1, dtype) if use_1x1conv else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -151,44 +232,51 @@ class SymmetricConv2d(nn.Module):
 
 class ChannelWiseSymmetricConv(nn.Module):
     """Three independent :class:`SymmetricConv2d`, one per R/G/B channel
-    (reference :78-95), run as one grouped conv.  (N, 3, H, W) in and out."""
+    (reference :78-95), run as one grouped conv in compute ``dtype``.
+    (N, 3, H, W) in and out."""
 
-    def __init__(self, kernel_size: int = 3):
+    def __init__(self, kernel_size: int = 3, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv_r = SymmetricConv2d(kernel_size)
         self.conv_g = SymmetricConv2d(kernel_size)
         self.conv_b = SymmetricConv2d(kernel_size)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         convs = (self.conv_r, self.conv_g, self.conv_b)
         weight = torch.stack([c.kernel() for c in convs])[:, None]  # (3, 1, k, k)
         bias = torch.cat([c.bias for c in convs])
-        k = convs[0].kernel_size
-        return F.conv2d(x, weight.to(x.dtype), bias.to(x.dtype), padding=k // 2, groups=3)
+        k, dt = convs[0].kernel_size, self.compute_dtype
+        if dt == torch.float32:
+            return F.conv2d(x.float(), weight, bias, padding=k // 2, groups=3)
+        y = F.conv2d(x.to(dt), weight.to(dt), None, padding=k // 2, groups=3)
+        return y + _bias(bias, dt)
 
 
 class FakeChannelWiseSymmetricConv(nn.Module):
     """Identity stand-in for the no-modulation ablation (reference :98-103)."""
 
-    def __init__(self, kernel_size: int = 3):
+    def __init__(self, kernel_size: int = 3, dtype: torch.dtype = torch.float32):
         super().__init__()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
 
-def PixelShuffleConvTranspose(in_ch: int, features: int) -> nn.ConvTranspose2d:
+def PixelShuffleConvTranspose(in_ch: int, features: int,
+                              dtype: torch.dtype = torch.float32) -> ConvTranspose2d:
     """2x2 / stride-2 transposed conv (reference ConvTranspose2d(.., 2,
     stride=2)).  A flax kernel maps onto its weight with the spatial taps
     flipped: ``lax.conv_transpose`` flips them, torch does not (convert.py)."""
-    return nn.ConvTranspose2d(in_ch, features, 2, stride=2)
+    return ConvTranspose2d(in_ch, features, 2, stride=2, compute_dtype=dtype)
 
 
 class UNet(nn.Module):
     """Residual-block UNet, shape-preserving, sigmoid head
     (reference UNet :241-315): ``levels`` encoder levels at base*2^i
     channels, a base*2^levels bottleneck, transposed-conv ups, skip
-    connections by channel concat [skip, up], a final 1x1 conv."""
+    connections by channel concat [skip, up], a final 1x1 conv.  Its
+    convolutions run in compute ``dtype``, and so does its output."""
 
     def __init__(
         self,
@@ -196,29 +284,31 @@ class UNet(nn.Module):
         output_channels: int = 6,
         base_features: int = 64,
         levels: int = 4,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         f = base_features
         self.levels = levels
-        self.enc_0 = ResidualBlock(in_channels, f, use_1x1conv=True)
+        self.dtype = dtype
+        self.enc_0 = ResidualBlock(in_channels, f, True, dtype)
         for i in range(1, levels):
-            setattr(self, f"enc_{i}", ResidualBlock(f * 2 ** (i - 1), f * 2**i, True))
-        self.bottleneck = ResidualBlock(f * 2 ** (levels - 1), f * 2**levels, True)
+            setattr(self, f"enc_{i}", ResidualBlock(f * 2 ** (i - 1), f * 2**i, True, dtype))
+        self.bottleneck = ResidualBlock(f * 2 ** (levels - 1), f * 2**levels, True, dtype)
         if levels > 1:
             self.ConvTranspose_0 = PixelShuffleConvTranspose(
-                f * 2**levels, f * 2 ** (levels - 1)
+                f * 2**levels, f * 2 ** (levels - 1), dtype
             )
         for i in reversed(range(1, levels)):
-            setattr(self, f"dec_{i}", ResidualBlock(f * 2 ** (i + 1), f * 2**i, True))
+            setattr(self, f"dec_{i}", ResidualBlock(f * 2 ** (i + 1), f * 2**i, True, dtype))
             if i > 1:
                 setattr(
                     self,
                     f"ConvTranspose_{levels - i}",
-                    PixelShuffleConvTranspose(f * 2**i, f * 2 ** (i - 1)),
+                    PixelShuffleConvTranspose(f * 2**i, f * 2 ** (i - 1), dtype),
                 )
-        setattr(self, f"ConvTranspose_{levels - 1}", PixelShuffleConvTranspose(2 * f, f))
-        self.dec_0 = ResidualBlock(2 * f, f, True)
-        self.Conv_0 = _conv(f, output_channels, 1)
+        setattr(self, f"ConvTranspose_{levels - 1}", PixelShuffleConvTranspose(2 * f, f, dtype))
+        self.dec_0 = ResidualBlock(2 * f, f, True, dtype)
+        self.Conv_0 = _conv(f, output_channels, 1, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skips = []

@@ -13,8 +13,15 @@ the last up-conv, dec_0 and the head in the space-to-depth phase domain
 (:mod:`.polyphase`, exact), where the blocks run unfused, as in the JAX
 package.
 
-Inference only, float32 (convolutions in full float32, TF32 off): training
-keeps the module path (batch statistics and autograd).
+Inference only: training keeps the module path (batch statistics and
+autograd).  The compute dtype is the input's, float32 or bfloat16, as in
+the JAX function: BatchNorm folds in float32, the folded weights go to K5
+(or its plain version) in the compute dtype with float32 biases, and the
+up-convs, the head's 1x1 product and the polyphase primitives take their
+weights in it, each output rounded once to it before its bias adds.  Every
+product accumulates in float32: float32 convolutions with TF32 off, and
+bfloat16 matrix products with cuBLAS's reduced-precision reduction off
+(``full_f32_convs``, restored on return).
 """
 
 from __future__ import annotations
@@ -58,10 +65,10 @@ def _block_eval_poly(block: ResidualBlock, x4: torch.Tensor) -> torch.Tensor:
 
 
 def _pixel_shuffle_up(up: torch.nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
-    """The 2x2/stride-2 up-conv of an NHWC tensor (the module's op)."""
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), up.weight.to(x.dtype), up.bias.to(x.dtype),
-                           stride=2)
-    return y.permute(0, 2, 3, 1)
+    """The 2x2/stride-2 up-conv of an NHWC tensor in its dtype (the
+    module's op: the bias adds after the output rounds)."""
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), up.weight.to(x.dtype), stride=2)
+    return y.permute(0, 2, 3, 1) + up.bias.to(x.dtype)
 
 
 def _flax_up_kernel(up: torch.nn.ConvTranspose2d) -> torch.Tensor:
@@ -96,12 +103,8 @@ def unet_apply_fused(
     counterpart: it exists because the TPU kernel's VMEM budget refuses most
     blocks, and K5 takes every block the UNet has.  ``polyphase_level0``
     computes level 0 in the space-to-depth phase domain (even H and W; exact
-    math).
+    math).  ``x``'s dtype (float32 or bfloat16) is the compute dtype.
     """
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "unet_apply_fused: bfloat16 is not ported yet (ROADMAP.md queue 1 item 2)"
-        )
     if not supported(unet):
         raise ValueError("unet_apply_fused: every residual block needs its 1x1 shortcut")
     levels = unet.levels

@@ -5,17 +5,25 @@ Counterpart of ``learned_hologram_gan_tpu/ops/pallas/conv_block.py``
 
   relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2 + conv1x1(x, w3) + b3)
 
-NHWC ``(B, H, W, Cin) -> (B, H, W, Cout)``, SAME padding, float32 with
-float32 accumulation; ``w1`` (3, 3, Cin, C), ``w2`` (3, 3, C, C), ``w3``
-(Cin, C) or (1, 1, Cin, C), biases (C,): the JAX package's layouts.
+NHWC ``(B, H, W, Cin) -> (B, H, W, Cout)``, SAME padding, float32
+accumulation; ``w1`` (3, 3, Cin, C), ``w2`` (3, 3, C, C), ``w3`` (Cin, C)
+or (1, 1, Cin, C), biases (C,): the JAX package's layouts.  The compute
+dtype is ``x``'s, float32 or bfloat16: the weights go in cast to it, the
+biases stay float32, and in bfloat16 the kernel rounds y1 once between the
+two convolutions and the output once at the end, as the JAX kernel does
+(conv_block.py:138, :169).
 
 * :func:`fold_conv_bn` folds an eval-mode :class:`~..nn.blocks.BatchNorm`
   into the convolution before it (exact at eval time).
 * :func:`residual_block_reference` is the plain version: cuDNN convolutions
-  with TF32 off (``full_f32_convs``).
+  with TF32 off (``full_f32_convs``), in bfloat16 as the JAX reference
+  (conv_block.py:244-266) rounds: each conv output in bfloat16, its bias
+  cast to bfloat16 and added there.
 * :func:`fused_residual_block` is K5's wrapper: on a CUDA tensor it
   launches ``csrc/k5_residual_block.cu`` (one C entry per block, two kernel
-  launches inside) or raises; a CPU tensor takes the plain version.
+  launches inside; a float32 entry on the SIMT cores and a bfloat16 entry
+  on the tensor cores, ``mma.sync`` with float32 accumulation) or raises; a
+  CPU tensor takes the plain version.
 * :func:`supported` is K5's own predicate, from Hopper's limits (the
   kernel tiles over pixels and channels, so neither the weights nor the
   activations need to fit in shared memory whole), not the TPU's VMEM model.
@@ -59,15 +67,23 @@ def _oihw(k: torch.Tensor) -> torch.Tensor:
     return k.permute(3, 2, 0, 1)
 
 
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, padding: int) -> torch.Tensor:
+    """conv(x, w) + b in x's dtype; below float32 the output rounds before
+    the bias adds, as XLA's conv + add does."""
+    dt = x.dtype
+    if dt == torch.float32:
+        return F.conv2d(x, _oihw(w).float(), b.float(), padding=padding)
+    return F.conv2d(x, _oihw(w).to(dt), padding=padding) + b.to(dt)[:, None, None]
+
+
 def residual_block_reference(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     """Plain version of :func:`fused_residual_block` (same arguments):
-    ``F.conv2d`` on the NCHW view, TF32 off."""
+    ``F.conv2d`` on the NCHW view in x's dtype, TF32 off."""
     xc = x.permute(0, 3, 1, 2)
-    dt = x.dtype
     with full_f32_convs():
-        y = F.relu(F.conv2d(xc, _oihw(w1).to(dt), b1.to(dt), padding=1))
-        y = F.conv2d(y, _oihw(w2).to(dt), b2.to(dt), padding=1)
-        sc = F.conv2d(xc, _oihw(w3).to(dt), b3.to(dt))
+        y = F.relu(_conv(xc, w1, b1, 1))
+        y = _conv(y, w2, b2, 1)
+        sc = _conv(xc, w3, b3, 0)
     return F.relu(y + sc).permute(0, 2, 3, 1).contiguous()
 
 
@@ -82,55 +98,73 @@ def supported(h: int, w: int, cin: int, cout: int) -> bool:
     return tiles <= _MAX_GRID_X and -(-cout // TILE_N) <= _MAX_GRID_YZ
 
 
+# the C entry for each compute dtype
+ENTRIES = {torch.float32: "k5_residual_block", torch.bfloat16: "k5_residual_block_bf16"}
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
+    """({dtype: C entry}, the error-string function)."""
     from .build import load_library
 
     lib = load_library(KERNEL_NAME)
-    fn = lib.k5_residual_block
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fns = {}
+    for dtype, name in ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[dtype] = fn
     err = lib.k5_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return fn, err
+    return fns, err
 
 
 def prepare(x, w1, b1, w2, b2, w3, b3):
     """Check a CUDA call's arguments and lay them out as the kernel takes
-    them: x (B, H, W, Cin), w1 (9, Cin, C), w2 (9, C, C), w3 (Cin, C), biases
-    (C,), all float32 and contiguous on x's device.  Raises on anything K5
-    does not take."""
+    them: x (B, H, W, Cin), w1 (9, Cin, C), w2 (9, C, C), w3 (Cin, C) in x's
+    dtype (float32 or bfloat16), biases (C,) float32, all contiguous on x's
+    device; in bfloat16 the weights go with their input channels last, as
+    the tensor-core kernel reads them (w1 (9, C, Cin), w2 (9, C, C), w3
+    (C, Cin)).  Raises on anything K5 does not take."""
     if x.device.type != "cuda":
         raise ValueError(f"K5 needs a CUDA tensor, got {x.device}")
     if torch.cuda.get_device_capability(x.device) != (9, 0):
         raise RuntimeError("K5 is built for sm_90a (Hopper) only")
-    if x.dtype != torch.float32 or x.dim() != 4:
-        raise ValueError(f"K5 takes float32 NHWC input, got {x.dtype} {tuple(x.shape)}")
+    if x.dtype not in ENTRIES or x.dim() != 4:
+        raise ValueError(f"K5 takes float32 or bfloat16 NHWC input, got {x.dtype} "
+                         f"{tuple(x.shape)}")
     bsz, h, w, cin = x.shape
     cout = w1.shape[-1]
     if not supported(h, w, cin, cout) or bsz > _MAX_GRID_YZ:
         raise ValueError(f"K5 does not support a ({bsz}, {h}, {w}, {cin}) -> {cout} block")
     if w3.dim() == 4:
         w3 = w3[0, 0]
-    want = {"w1": (w1, (3, 3, cin, cout)), "w2": (w2, (3, 3, cout, cout)), "w3": (w3, (cin, cout)),
-            "b1": (b1, (cout,)), "b2": (b2, (cout,)), "b3": (b3, (cout,))}
+    f32 = torch.float32
+    want = {"w1": (w1, (3, 3, cin, cout), x.dtype), "w2": (w2, (3, 3, cout, cout), x.dtype),
+            "w3": (w3, (cin, cout), x.dtype),
+            "b1": (b1, (cout,), f32), "b2": (b2, (cout,), f32), "b3": (b3, (cout,), f32)}
     out = []
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device:
-            raise ValueError(f"K5: {name} must be float32 {shape} on {x.device}, "
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device:
+            raise ValueError(f"K5: {name} must be {dtype} {shape} on {x.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         out.append(t.contiguous())
     w1, w2, w3, b1, b2, b3 = out
-    return (x.contiguous(), w1.reshape(9, cin, cout), b1, w2.reshape(9, cout, cout), b2, w3, b3)
+    w1, w2 = w1.reshape(9, cin, cout), w2.reshape(9, cout, cout)
+    if x.dtype == torch.bfloat16:
+        w1, w2, w3 = (w.transpose(-1, -2).contiguous() for w in (w1, w2, w3))
+    return (x.contiguous(), w1, b1, w2, b2, w3, b3)
 
 
 def launch(x, w1, b1, w2, b2, w3, b3, y1, out) -> torch.Tensor:
     """Launch K5 on arguments from :func:`prepare`, with ``y1`` and ``out``
-    (B, H, W, C) float32 buffers; returns ``out``."""
+    (B, H, W, C) buffers in x's dtype; returns ``out``."""
     bsz, h, w, cin = x.shape
-    fn, err_str = _kernel_fn()
-    code = fn(
+    fns, err_str = _kernel_fn()
+    if y1.dtype != x.dtype or out.dtype != x.dtype:
+        raise ValueError(f"K5: y1 and out must be {x.dtype}, got {y1.dtype} and {out.dtype}")
+    code = fns[x.dtype](
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         w3.data_ptr(), b3.data_ptr(), y1.data_ptr(), out.data_ptr(),
         bsz, h, w, cin, out.shape[-1],
@@ -149,13 +183,16 @@ def fused_residual_block(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     x: (B, H, W, Cin); w1 (3, 3, Cin, C); w2 (3, 3, C, C); w3 (Cin, C) or
     (1, 1, Cin, C); biases (C,).  SAME padding, stride 1: the eval-mode
     ``ResidualBlock`` with its BatchNorms folded by :func:`fold_conv_bn`.
-    A CPU tensor takes :func:`residual_block_reference`; a CUDA tensor
-    launches K5 or raises.
+    x's dtype is the compute dtype: the weights are cast to it and the
+    biases to float32, as the JAX wrapper casts them.  A CPU tensor takes
+    :func:`residual_block_reference`; a CUDA tensor launches K5 or raises.
     """
     if x.device.type == "cpu":
         return residual_block_reference(x, w1, b1, w2, b2, w3, b3)
+    w1, w2, w3 = (w.to(x.dtype) for w in (w1, w2, w3))
+    b1, b2, b3 = (b.float() for b in (b1, b2, b3))
     args = prepare(x, w1, b1, w2, b2, w3, b3)
-    y1 = torch.empty(x.shape[:3] + (w1.shape[-1],), dtype=torch.float32, device=x.device)
+    y1 = torch.empty(x.shape[:3] + (w1.shape[-1],), dtype=x.dtype, device=x.device)
     return launch(*args, y1, torch.empty_like(y1))
 
 

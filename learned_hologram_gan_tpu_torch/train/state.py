@@ -38,7 +38,7 @@ def build_modules(
 ) -> Tuple[Generator, nn.Module]:
     generator = Generator(gen_config)
     critic = WGANGPDiscriminator192 if use_gan else FakeDiscriminator
-    return generator, critic(feature_d=disc_config.feature_d)
+    return generator, critic(feature_d=disc_config.feature_d, dtype=disc_config.dtype)
 
 
 def create_train_state(

@@ -3,7 +3,7 @@
 checkpoints, the loss/metric history and the visualizations.
 
 Constructor and ``train`` keep the JAX package's arguments.  The ones this
-port does not support yet (bf16, remat, uncached H, spatial meshes, critic
+port does not support yet (remat, uncached H, spatial meshes, critic
 batchings other than "pair", the two-H hat path, polyphase level 0,
 column-pad overrides, part-wise pretraining and freezing, full-state
 resume) raise ``NotImplementedError`` naming the argument and its CLI flag.
@@ -86,7 +86,6 @@ class Watermelon:
         device: str | torch.device = "cuda",
     ):
         refused = [
-            (dtype != "float32", "dtype='bfloat16'", "dtype bfloat16"),
             (remat, "remat", "remat"),
             (not cache_h, "cache_h=False", "no_cache_h"),
             (spatial_mesh is not None, "spatial_mesh", "spatial_mesh_devices"),
@@ -121,8 +120,9 @@ class Watermelon:
             distance=1e-3,  # reference watermelon.py:58
             use_modulation=use_modulation,
             unet_base_features=unet_base_features,
+            dtype=dtype,
         )
-        self.disc_config = DiscriminatorConfig(feature_d=feature_d)
+        self.disc_config = DiscriminatorConfig(feature_d=feature_d, dtype=dtype)
         self.use_gan = use_gan
         self._loss_defaults = dict(
             phase_loss=phase_loss,

@@ -5,10 +5,12 @@
   against ``torch.autograd`` through K1's plain version), with its time,
   the plain version's, a one-call library yardstick and the card's bound;
 * :func:`training_path`: ``training_model.main --use_gan --perceptual
-  random`` at full width on seeded random data, then one validation batch
-  through the trainer's eval step, with the launch counters reset before
-  and read after; then steps/s, the peak memory and a split of one step by
-  CUDA events and by ``torch.profiler``.
+  random --dtype <dtype>`` at full width on seeded random data, then one
+  validation batch through the trainer's eval step, with the launch
+  counters reset before and read after, and the convolutions' compute
+  dtypes recorded (in bfloat16: the generator's and the critic's bfloat16,
+  VGG19's float32); then steps/s, the peak memory and a split of one step
+  by CUDA events and by ``torch.profiler``.
 
 Both raise on any failure.
 """
@@ -23,7 +25,14 @@ import time
 import numpy as np
 import torch
 
-from .utils.cuda_measure import bound_ms, check_rel, cuda_ms, fft_flops, profile_kernels
+from .utils.cuda_measure import (
+    PEAK_F32_FLOP_PER_S,
+    bound_ms,
+    check_rel,
+    cuda_ms,
+    fft_flops,
+    profile_kernels,
+)
 
 ROWS = COLS = 384
 PAD = 320
@@ -41,11 +50,12 @@ class _Entry:
         self.t = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
         self.kernel_ms, self.err, self.kinds = 0.0, 0.0, []
 
-    def add(self, name, card, err, wrapper, plain, library, kernel, nbytes, flops):
-        t = dict(ms=cuda_ms(wrapper), plain_ms=cuda_ms(plain, iters=3, warmup=1),
-                 library_ms=cuda_ms(library))
-        kernel_ms = cuda_ms(kernel) if kernel is not None else None
-        t["bound_ms"], kind = bound_ms(nbytes, flops)
+    def add(self, name, card, err, wrapper, plain, library, kernel, nbytes, flops,
+            peak_flop_per_s=PEAK_F32_FLOP_PER_S, iters=5):
+        t = dict(ms=cuda_ms(wrapper, iters=iters), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                 library_ms=cuda_ms(library, iters=iters))
+        kernel_ms = cuda_ms(kernel, iters=iters) if kernel is not None else None
+        t["bound_ms"], kind = bound_ms(nbytes, flops, peak_flop_per_s)
         alone = "" if kernel_ms is None else f" (kernel alone {kernel_ms:.3f} ms)"
         print(f"{name}: wrapper {t['ms']:.3f} ms{alone}, plain {t['plain_ms']:.3f} ms, library "
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({kind}) [{card}]", flush=True)
@@ -198,11 +208,11 @@ def _write_bins(tmp):
     return argv, train
 
 
-def training_path(card):
-    """The training path through ``training_model.main`` at full width,
-    then one validation batch through the trainer's eval step (the CLI
-    validates every 50 steps; this epoch has 3).  Returns the kernels'
-    launches on that run."""
+def training_path(card, dtype="float32"):
+    """The training path through ``training_model.main`` at full width in
+    ``dtype``, then one validation batch through the trainer's eval step
+    (the CLI validates every 50 steps; this epoch has 3).  Returns the
+    kernels' launches on that run."""
     from . import card_check, training_model
     from .data import ImgDepthAmpPhsDataset, epoch_loader
     from .ops.cuda import fft, spectral
@@ -217,16 +227,16 @@ def training_path(card):
             "--save_path_G", os.path.join(out, "G.pt"), "--save_path_D", os.path.join(out, "D.pt"),
             "--loss_metrics_file", os.path.join(out, "history.json"),
             "--save_path_img", os.path.join(out, "imgs"),
-            "--use_gan", "--perceptual", "random", "--device", "cuda",
+            "--use_gan", "--perceptual", "random", "--device", "cuda", "--dtype", dtype,
         ]
         dataset = ImgDepthAmpPhsDataset(*train_paths, SAMPLES, 3, ROWS, COLS)
         # the main path's run: counters to 0 just before, read just after
         torch.cuda.reset_peak_memory_stats()
         spectral.reset_launch_counts()
         fft.fft_axis.launches = 0
-        fwd, bwd = [], []
+        fwd, bwd, dtypes = [], [], set()
         start = time.perf_counter()
-        with card_check.record_conv_tf32(fwd, bwd):
+        with card_check.record_conv_tf32(fwd, bwd, dtypes):
             trainer, _ = training_model.main(argv)
             val_batch = next(epoch_loader(dataset, VAL_BATCH, shuffle=False, drop_last=True))
             val = trainer.eval_step(trainer.state, val_batch, trainer.gen_plan, trainer.multi_plan)
@@ -235,8 +245,9 @@ def training_path(card):
         wall = time.perf_counter() - start
         launches = dict(k1=spectral.row_pass.launches, k1_modes=dict(spectral.row_pass.launches_by_mode),
                         k2=spectral.row_adjoint.launches, k3=fft.fft_axis.launches)
-        print(f"training_model.main ({STEPS} steps, weights init and first-call setup included) + "
-              f"one eval step: {wall:.2f} s; launches K1 {launches['k1']} {launches['k1_modes']}, "
+        print(f"training_model.main --dtype {dtype} ({STEPS} steps, weights init and first-call "
+              f"setup included) + one eval step: {wall:.2f} s; convolutions computed in "
+              f"{sorted(str(d) for d in dtypes)}; launches K1 {launches['k1']} {launches['k1_modes']}, "
               f"K2 {launches['k2']}, K3 {launches['k3']}; TF32 on in {sum(fwd)} of {len(fwd)} "
               f"convolution forwards and {sum(bwd)} of {len(bwd)} backwards; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
@@ -248,6 +259,8 @@ def training_path(card):
             raise AssertionError("K2 or K3 did not launch on the training path")
         if not fwd or not bwd or any(fwd) or any(bwd):
             raise AssertionError("the training path ran float32 convolutions with TF32 on")
+        if dtypes != {torch.float32, getattr(torch, dtype)}:  # VGG19 stays float32
+            raise AssertionError(f"convolutions computed in {dtypes}, want {dtype} and VGG19's float32")
         if not all(np.isfinite(v) for v in val.values()):
             raise AssertionError(f"non-finite eval metrics: {val}")
         for net in (trainer.state.generator, trainer.state.discriminator):
@@ -297,13 +310,13 @@ def training_path(card):
         result = fn()
         ev[1].record()
         torch.cuda.synchronize()
-        split[label] = split.get(label, 0.0) + ev[0].elapsed_time(ev[1]) / 2
+        split[label] = ev[0].elapsed_time(ev[1])
         return result
 
-    for batch in loader[:2]:
+    for batch in loader[:1]:
         phases(batch, timed)
     total = sum(split.values())
-    print(f"train step at full width (batch {BATCH}, ratio {RATIO}): {1 / step_s:.3f} steps/s "
+    print(f"train step at full width ({dtype}, batch {BATCH}, ratio {RATIO}): {1 / step_s:.3f} steps/s "
           f"({step_s * 1e3:.1f} ms, {len(loader)} steps, host clock); split by CUDA events: "
           + ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.1f} %)" for k, v in split.items())
           + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)

@@ -16,7 +16,7 @@ non-adversarial variant; ``--use_gan`` runs the full WGAN-GP loop::
         --use_gan --perceptual random --epoch_num 1
 
 Checkpoints are torch ``state_dict`` files.  Flags of the JAX package that
-the port does not support yet (``--dtype bfloat16``, ``--mesh_devices``,
+the port does not support yet (``--mesh_devices``,
 ``--spatial_mesh_devices``, ``--two_h_hat``, ``--remat``, ``--no_cache_h``,
 ``--polyphase_level0``, ``--resume_dir``, ``--freeze_part1``,
 ``--pretrained_part1/2``, ``--device_resident_data``, ``--critic_batching``
@@ -78,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--perceptual_weights', type=str, default=None,
                         help="Path to VGG19 weights npz (see tools/convert_vgg19.py).")
     parser.add_argument('--dtype', type=str, default='float32', choices=['float32', 'bfloat16'],
-                        help="Conv compute dtype (only float32 is ported).")
+                        help="Conv compute dtype; parameters stay float32.")
     parser.add_argument('--mesh_devices', type=int, default=0,
                         help="Data-parallel over this many devices (not ported yet).")
     parser.add_argument('--spatial_mesh_devices', type=int, default=0,

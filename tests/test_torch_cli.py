@@ -115,6 +115,24 @@ def test_card_check_on_cpu():
         card_check.check(dict(stats, k1_launches=2, convs_tf32=1))
 
 
+def test_card_check_bf16_on_cpu():
+    """The bfloat16 card-vs-CPU checks, run with the CPU in both places:
+    identical POHs and train steps, bfloat16 convolutions (and float32
+    VGG19), and each check names what it misses."""
+    stats = card_check.card_vs_cpu("cpu", dtype="bfloat16")
+    assert stats["poh_gate"] == 0 and stats["conv_dtypes"] == ["torch.bfloat16"]
+    card_check.check(dict(stats, k1_launches=2))
+    with pytest.raises(AssertionError, match="computed in"):
+        card_check.check(dict(stats, k1_launches=2, conv_dtypes=["torch.float32"]))
+    stats = card_check.train_step_card_vs_cpu("cpu", dtype="bfloat16")
+    assert stats["conv_dtypes"] == ["torch.bfloat16", "torch.float32"]
+    assert stats["grad_G_rel"] == 0 and stats["grad_D_rel"] == 0
+    card_check.check_train_step(dict(stats, k1_launches=2, k2_launches=2, k3_launches=6))
+    with pytest.raises(AssertionError, match="computed in"):
+        card_check.check_train_step(dict(stats, k1_launches=2, k2_launches=2, k3_launches=6,
+                                         conv_dtypes=["torch.float32"]))
+
+
 def test_train_step_card_check_on_cpu():
     """The train-step card-vs-CPU check with the CPU in both places:
     identical results, no TF32, no kernel launch, and check_train_step()
@@ -132,13 +150,16 @@ def test_train_step_card_check_on_cpu():
 
 
 def test_generate_poh_refuses_what_is_not_ported(tmp_path):
+    """flax checkpoints and --mesh_devices raise; --dtype bfloat16, refused
+    before it was ported, now runs."""
     paths = _write_bins(tmp_path)
     (tmp_path / "G.msgpack").write_bytes(b"\x80")
     with pytest.raises(NotImplementedError):
         generate_poh.main(_argv(tmp_path, paths, str(tmp_path / "G.msgpack")))
-    for extra in (["--dtype", "bfloat16"], ["--mesh_devices", "2"]):
-        with pytest.raises(NotImplementedError):
-            generate_poh.main(_argv(tmp_path, paths, "none.pt", extra))
+    with pytest.raises(NotImplementedError):
+        generate_poh.main(_argv(tmp_path, paths, "none.pt", ["--mesh_devices", "2"]))
+    poh = generate_poh.main(_argv(tmp_path, paths, "none.pt", ["--dtype", "bfloat16"]))["poh"]
+    assert poh.dtype == torch.float32 and torch.isfinite(poh).all()
     with pytest.raises(IndexError, match="Index out of range"):
         generate_poh.main(_argv(tmp_path, paths, "none.pt", ["--index", "99"]))
 
@@ -224,6 +245,50 @@ def test_training_model_cpu_writes_checkpoints_history_and_pngs(tmp_path, capsys
         assert torch.isfinite(p).all()
 
 
+def test_training_model_cpu_bfloat16(tmp_path):
+    """training_model --use_gan --dtype bfloat16 on the CPU: the UNet and the
+    critic compute in bfloat16, their parameters and Adam's state stay
+    float32, and the step's losses and weights come out finite."""
+    trainer, history = training_model.main(_train_argv(
+        tmp_path, ["--use_gan", "--perceptual", "none", "--dtype", "bfloat16"]))
+    state = trainer.state
+    assert state.step == 1
+    assert state.generator.part1.unet.enc_0.Conv_0.compute_dtype == torch.bfloat16
+    assert state.discriminator.Conv_0.compute_dtype == torch.bfloat16
+    for net in (state.generator, state.discriminator):
+        for p in net.parameters():
+            assert p.dtype == torch.float32 and torch.isfinite(p).all()
+    for opt in (state.opt_G, state.opt_D):
+        assert all(s["exp_avg"].dtype == torch.float32 for s in opt.state.values())
+    assert all(np.isfinite(v).all() for v in history["train_losses_tensor"].values())
+    sd = torch.load(tmp_path / "out" / "G.pt", weights_only=True)
+    assert all(v.dtype in (torch.float32, torch.int64) for v in sd.values())
+
+
+def test_generate_poh_cpu_bfloat16_matches_jax(tmp_path):
+    """generate_poh --dtype bfloat16 on carried weights against the JAX
+    bfloat16 generator, with the JAX package's bfloat16 POH gate (5e-2,
+    tests/test_fused_unet.py:83) on the phasors; the focal stack runs."""
+    paths = _write_bins(tmp_path)
+    jcfg = JaxGenConfig(rows=H, cols=W, pad_size=16, filter_radius_coefficient=0.45,
+                        unet_base_features=2, dtype="bfloat16")
+    jplan = jax_gen_plan(jcfg)
+    jgen = JaxGenerator(jcfg)
+    rgbd = ImgDepthDataset(paths["img"], paths["depth"], samples_num=3, height=H, width=W)[2]
+    x = jnp.asarray(rgbd)[None]
+    variables = jax_variables(jgen, jplan, x, seed=2, train=False)
+    want = np.asarray(jax_apply(jgen, variables, jplan, x, train=False))[0]
+    torch.save(convert.generator_state_dict(variables), tmp_path / "G.pt")
+    result = generate_poh.main(_argv(tmp_path, paths, str(tmp_path / "G.pt"), [
+        "--dtype", "bfloat16", "--propagate", "--num_intervals", "3",
+        "--output_image_dir", str(tmp_path / "recon")]))
+    got = np.load(tmp_path / "poh.npy")
+    d = np.abs(np.exp(1j * got.astype(np.float64)) - np.exp(1j * want.astype(np.float64)))
+    assert np.max(d) <= 5e-2
+    assert torch.isfinite(result["focal_stack"]).all()
+    assert sorted(os.listdir(tmp_path / "recon")) == ["0.png", "1.png", "2.png"]
+
+
 def test_trainer_records_history_like_jax(tmp_path):
     """The Watermelon loop on reusable loaders: the validation interval, the
     history counters and finite losses, as the JAX package's own test checks
@@ -293,7 +358,7 @@ def test_training_model_flag_parity():
 
 
 UNPORTED_TRAINING_FLAGS = [
-    ["--dtype", "bfloat16"], ["--mesh_devices", "2"], ["--spatial_mesh_devices", "2"],
+    ["--mesh_devices", "2"], ["--spatial_mesh_devices", "2"],
     ["--two_h_hat"], ["--remat"], ["--no_cache_h"], ["--polyphase_level0"],
     ["--resume_dir", "r"], ["--freeze_part1"], ["--pretrained_part1", "p"],
     ["--pretrained_part2", "p"], ["--device_resident_data"], ["--critic_batching", "separate"],

@@ -14,14 +14,16 @@ same f32 operation order on both sides).  K4 and K5 are held to the same
 bound: K4 repeats the plain version's float32 theta and differs only in
 sincosf against torch's cos/sin (~1 ulp); K5 sums the same float32 products
 as cuDNN with TF32 off, in another order (~1e-6 of the largest output over
-9 * Cin terms).
+9 * Cin terms).  K5's bfloat16 variant is held to the bfloat16 bounds
+derived in ``fused_smoke.py`` (9 u at worst, 2 u at p99.9, u = 2^-8), and
+the bfloat16 slices to those of ``card_check.py``.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from learned_hologram_gan_tpu_torch import card_check
+from learned_hologram_gan_tpu_torch import card_check, fused_smoke
 from learned_hologram_gan_tpu_torch.config import OpticsConfig
 from learned_hologram_gan_tpu_torch.ops import asm
 from learned_hologram_gan_tpu_torch.ops.cuda import conv_block, fft, spectral, transfer
@@ -188,6 +190,62 @@ def test_k5_matches_plain_version(device, shape):
     assert got.shape == want.shape == (b, h, w, cout)
     zeros = torch.zeros_like(want)
     assert_rel_close(got, zeros, want, zeros)
+
+
+@pytest.mark.parametrize("shape", K5_SHAPES)
+def test_k5_bf16_matches_plain_version(device, shape):
+    """K5's bfloat16 entry on a bfloat16 input with float32 folded weights
+    (the wrapper casts them, as the JAX wrapper does)."""
+    b, h, w, cin, cout = shape
+    rng = np.random.default_rng(5)
+
+    def draw(*s, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(s)).astype(np.float32)).to(device)
+
+    x = draw(b, h, w, cin).bfloat16()
+    args = (draw(3, 3, cin, cout, scale=(9 * cin) ** -0.5), draw(cout),
+            draw(3, 3, cout, cout, scale=(9 * cout) ** -0.5), draw(cout),
+            draw(cin, cout, scale=cin ** -0.5), draw(cout))
+    before = conv_block.fused_residual_block.launches
+    got = conv_block.fused_residual_block(x, *args)
+    torch.cuda.synchronize()
+    assert conv_block.fused_residual_block.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, w, cout)
+    want = conv_block.residual_block_reference(x, *args).float()
+    err = (got.float() - want).abs().flatten() / want.abs().max()
+    assert float(err.max()) <= fused_smoke.K5_BF16_MAX_REL_TOL
+    assert float(err.sort().values[int(0.999 * (err.numel() - 1))]) <= fused_smoke.K5_BF16_P999_REL_TOL
+
+
+def test_k5_bf16_refusals(device):
+    """prepare() takes bfloat16 x with bfloat16 weights and float32 biases
+    and nothing else; launch() wants bfloat16 buffers for it."""
+    x = torch.zeros((1, 8, 8, 4), device=device, dtype=torch.bfloat16)
+    w1, w2, w3 = (torch.zeros(s, device=device, dtype=torch.bfloat16)
+                  for s in ((3, 3, 4, 8), (3, 3, 8, 8), (4, 8)))
+    b = torch.zeros(8, device=device)
+    args = conv_block.prepare(x, w1, b, w2, b, w3, b)
+    with pytest.raises(ValueError):
+        conv_block.prepare(x, w1.float(), b, w2, b, w3, b)  # float32 weights
+    with pytest.raises(ValueError):
+        conv_block.prepare(x, w1, b.bfloat16(), w2, b, w3, b)  # bfloat16 bias
+    with pytest.raises(ValueError):
+        conv_block.fused_residual_block(x.half(), w1, b, w2, b, w3, b)  # float16
+    y1 = torch.empty((1, 8, 8, 8), device=device)
+    with pytest.raises(ValueError):
+        conv_block.launch(*args, y1, y1)  # float32 buffers for a bfloat16 block
+
+
+def test_small_slice_bf16_on_card_matches_cpu(device):
+    card_check.check(card_check.card_vs_cpu(device, dtype="bfloat16"))
+
+
+def test_train_step_bf16_on_card_matches_cpu(device):
+    card_check.check_train_step(card_check.train_step_card_vs_cpu(device, dtype="bfloat16"))
+
+
+def test_fused_generator_bf16_on_card_matches_cpu(device):
+    card_check.check_fused(card_check.fused_card_vs_cpu(device, dtype="bfloat16"))
 
 
 @pytest.mark.parametrize("rows,cols,batch,num_d", [(16, 16, 2, 3), (32, 48, 1, 1), (1024, 1024, 1, 4)])

@@ -222,9 +222,12 @@ def test_unet_fused_matches_jax_and_module(levels, polyphase_level0):
 
 
 def test_unet_fused_refuses_bfloat16_and_identity_shortcuts():
+    """A bfloat16 input, refused before bfloat16 was ported, now runs (in
+    bfloat16; tests/test_torch_bf16.py holds its numbers); a UNet without
+    its 1x1 shortcuts is still refused."""
     _, m, x = _unet_pair(2, seed=52)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        fused_unet.unet_apply_fused(m, t(x).bfloat16())
+    y = fused_unet.unet_apply_fused(m, t(x).bfloat16())
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
     assert fused_unet.supported(m) and not fused_unet.supported(torch.nn.Identity())
     m.enc_1.Conv_2 = None
     assert not fused_unet.supported(m)
@@ -279,6 +282,15 @@ def test_fused_card_check_on_cpu():
     with pytest.raises(AssertionError, match="K5 launched 0 times"):
         card_check.check_fused(stats)
     card_check.check_fused(dict(stats, k5_launches=9, k5_launches_polyphase=7))
+
+
+def test_fused_card_check_bf16_on_cpu():
+    """The same in bfloat16: identical POHs, held to the bfloat16 gate."""
+    stats = card_check.fused_card_vs_cpu("cpu", dtype="bfloat16")
+    assert stats["poh_gate"] == 0 and stats["finite"]
+    card_check.check_fused(dict(stats, k5_launches=9, k5_launches_polyphase=7))
+    with pytest.raises(AssertionError, match="poh_gate"):
+        card_check.check_fused(dict(stats, k5_launches=9, k5_launches_polyphase=7, poh_gate=0.1))
 
 
 # ---------------------------------------------------------------------------
