@@ -14,18 +14,21 @@ configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
   1. environment: Python, torch, CUDA, nvcc, the card's name and power limit;
   2. build every kernel from ``csrc/`` with nvcc, one process per source,
      all started together (timed);
-  3. each kernel (K1 in its inference and training modes, K2, K3) against
-     its plain PyTorch version at the paths' shapes, with its time, the
-     plain version's, a library yardstick and the card's lower bound for
-     the same work;
+  3. each kernel (K1 in its inference and training modes, the two-H hat
+     path's included, K2, K3) against its plain PyTorch version at the
+     paths' shapes, with its time, the plain version's, a library yardstick
+     and the card's lower bound for the same work;
   4. inference through ``generate_poh.main`` on synthetic RGBD files, with
      the launch counters reset before and read after, then the batch-16
      POH rate;
   5. training through ``training_model.main --use_gan --perceptual random``:
-     one epoch of 3 steps on 12 seeded random samples, then one validation
+     one epoch of 2 steps on 8 seeded random samples, then one validation
      batch through the trainer's eval step, counters reset before and read
-     after; then steps/s, peak memory and a split of one step by CUDA events
-     and by ``torch.profiler`` (phases 3 and 5 of the training slice live in
+     after and each kernel's launches, by mode, held to what the code
+     makes; then steps/s over 2 steps after a warm-up, their peak memory
+     and a split of one step by CUDA events; then the same with
+     ``--two_h_hat``, ``--critic_batching separate`` and ``--critic_batching
+     full`` (phases 3 and 5 of the training slice live in
      ``learned_hologram_gan_tpu_torch/train_smoke.py``);
   6. the fused eval path (``generator_apply_fused``, K5 on every block)
      against the module path, K5 and K4 against their plain versions
@@ -37,10 +40,11 @@ configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
   8. the bfloat16 fused eval path, K5's bfloat16 variant on all nine blocks
      against its plain version and the cuDNN bfloat16 chain;
   9. bfloat16 training through ``training_model.main --use_gan --dtype
-     bfloat16 --perceptual random``;
+     bfloat16 --perceptual random``, with the same four step options, the
+     default step's split also under ``torch.profiler``;
   10. the three paths at a small size on the card (kernels) against the CPU
-     (plain versions), same weights and draws (``card_check``), in float32
-     and in bfloat16.
+     (plain versions), same weights and draws (``card_check``), the train
+     step with each of the four options, in float32 and in bfloat16.
 
 It raises on any failure.  It prints the kernels' JSON line and then, as
 its last line, ``{"ok": true, "device": {...}}``.  It exits non-zero at once
@@ -65,6 +69,11 @@ ROWS = COLS = 384
 PAD = 320
 DISTANCES = (4e-4, 7e-4, 1e-3)  # np.linspace(4e-4, 1e-3, 3), generatePOH defaults
 SUBPROCESS_TIMEOUT_S = 120
+# the train step's options each training phase runs: the default (pair
+# batching, the composed reconstruction) first, then the two-H hat path
+# and the other two critic batchings
+TRAIN_OPTIONS = [{}, dict(two_h_hat=True), dict(critic_batching="separate"),
+                 dict(critic_batching="full")]
 
 
 class Phase:
@@ -88,32 +97,12 @@ def run(cmd):
                           check=True).stdout.strip()
 
 
-def k1_bound_ms(p, rows, cols, rp, cp, num_d, masked):
-    """Least time for propagate_planes' work on these shapes: the larger of
-    its bytes (fr, fi, wl2, dists, mask read once; the cropped result written
-    once) over HBM bandwidth and its FFT + H arithmetic over the f32 rate."""
-    from learned_hologram_gan_tpu_torch.utils.cuda_measure import bound_ms, fft_flops
-
-    in_bytes = 2 * p * rows * cols * 4 + p * 4 + num_d * 4 + (rp * cp * 4 if masked else 0)
-    out_bytes = 2 * p * num_d * rows * cols * 4
-    flops = (
-        fft_flops(cp, p * rows)  # column transform of the nonzero rows
-        + fft_flops(rp, p * cp)  # row transform, once per plane
-        + fft_flops(rp, p * num_d * cp)  # inverse row transform per distance
-        + fft_flops(cp, p * num_d * rows)  # inverse column transform, cropped rows
-        # H: 2 mul + add for fx^2+fy^2, sub, sqrt, 2 mul for theta, sin+cos
-        # counted as 2, complex multiply 6, mask 2
-        + p * num_d * rp * cp * (8 + 6 + (2 if masked else 0))
-    )
-    return bound_ms(in_bytes + out_bytes, flops)
-
-
 def phase_kernels(card):
     import numpy as np
     import torch
 
     from learned_hologram_gan_tpu_torch.utils.cuda_measure import (
-        MAX_REL_TOL, P999_REL_TOL, cuda_ms, relative_errors)
+        MAX_REL_TOL, P999_REL_TOL, cuda_ms, k1_bound_ms, relative_errors)
 
     from learned_hologram_gan_tpu_torch.config import GeneratorConfig, OpticsConfig
     from learned_hologram_gan_tpu_torch.models import make_generator_plan
@@ -338,16 +327,22 @@ def phase_small_vs_cpu(dtype):
           "{convs_tf32} of {convs} convolutions, computed in {conv_dtypes}; K1 launches "
           "{k1_launches}".format(**stats), flush=True)
     card_check.check(stats)
-    stats = card_check.train_step_card_vs_cpu("cuda", dtype=dtype)
-    metrics = "; ".join(f"{k} {a:.6g} / {b:.6g}" for k, (a, b) in stats["metrics"].items())
-    print(f"small train step ({dtype}), CPU / card: {metrics}", flush=True)
-    print("small train step ({dtype}), card vs CPU: gradients G {grad_G_rel:.2e} D "
-          "{grad_D_rel:.2e} of max|g|; running stats excess G {stats_G_excess:.2e} D "
-          "{stats_D_excess:.2e}; TF32 on in {convs_forward_tf32} of {convs_forward} forwards, "
-          "{convs_backward_tf32} of {convs_backward} backwards; computed in {conv_dtypes}; "
-          "launches K1 {k1_launches}, K2 {k2_launches}, K3 {k3_launches}".format(**stats),
-          flush=True)
-    card_check.check_train_step(stats)
+    for option in TRAIN_OPTIONS:
+        stats = card_check.train_step_card_vs_cpu("cuda", dtype=dtype, **option)
+        what = f"small train step ({dtype}{', ' if option else ''}{option or ''})"
+        metrics = "; ".join(f"{k} {a:.6g} / {b:.6g}" for k, (a, b) in stats["metrics"].items())
+        print(f"{what}, CPU / card: {metrics}", flush=True)
+        print("{what}, card vs CPU: gradients G {grad_G_rel:.2e} D {grad_D_rel:.2e} of max|g|; "
+              "running stats excess G {stats_G_excess:.2e} D {stats_D_excess:.2e}; TF32 on in "
+              "{convs_forward_tf32} of {convs_forward} forwards, {convs_backward_tf32} of "
+              "{convs_backward} backwards; computed in {conv_dtypes}; launches K1 {k1_modes}, "
+              "K2 {k2_modes}, K3 {k3_launches}".format(what=what, **stats), flush=True)
+        over = ", ".join(f"{bn}[{c}] {e:.2e} (bias apart {d:.2f} lr)"
+                         for bn, c, e, d in stats["stats_D_mean_over_1e5"])
+        print(f"{what}: critic running means over 1e-5 of excess: {over or 'none'}; largest excess "
+              f"where the conv bias in front moved apart by < lr/2: "
+              f"{stats['stats_D_mean_unexplained']:.2e}", flush=True)
+        card_check.check_train_step(stats)
     stats = card_check.fused_card_vs_cpu("cuda", dtype=dtype)
     print("small fused generator ({dtype}), card (K5) vs CPU (plain): POH phasor mean "
           "{poh_mean:.2e} p99 {poh_p99:.2e} max {poh_max:.2e}, JAX gate form {poh_gate:.2e}; "
@@ -398,8 +393,9 @@ def main():
     with Phase("kernels vs plain versions: inference (batch 16)"):
         k1 = phase_kernels(card)
 
-    with Phase("kernels vs plain versions: training (batch 4, 20 distances)"):
+    with Phase("kernels vs plain versions: training (batch 4, 20 distances), and the two-H mode"):
         train_kernels = train_smoke.training_kernels(card)
+        train_kernels.update(train_smoke.two_h_kernels(card))
 
     # K4 lies on no path: its count over the three main paths' runs must stay 0
     with Phase("main path: generate_poh at full width, then batch-16 rate"):
@@ -407,14 +403,20 @@ def main():
         k1["launches"] = phase_slice(card)
         k4_launches = transfer.apply_transfer_stack.launches
 
-    with Phase("main path: training_model --use_gan at full width"):
-        transfer.reset_launch_counts()
-        launches = train_smoke.training_path(card)
-        k4_launches += transfer.apply_transfer_stack.launches
-    modes = launches["k1_modes"]
-    train_kernels["k1_train"]["launches"] = modes["from_spectrum+per_plane"] + modes["from_spectrum"]
-    train_kernels["k2"]["launches"] = launches["k2"]
+    runs = []
+    for option in TRAIN_OPTIONS:
+        with Phase(f"main path: training_model --use_gan at full width {option or ''}"):
+            transfer.reset_launch_counts()
+            runs.append(train_smoke.training_path(card, **option))
+            k4_launches += transfer.apply_transfer_stack.launches
+    launches = runs[0]["launches"]
+    train_kernels["k1_train"]["launches"] = (launches["k1"]["from_spectrum+per_plane"]
+                                             + launches["k1"]["from_spectrum"])
+    train_kernels["k2"]["launches"] = sum(launches["k2"].values())
     train_kernels["k3"]["launches"] = launches["k3"]
+    two_h = runs[TRAIN_OPTIONS.index(dict(two_h_hat=True))]["launches"]
+    train_kernels["k1_two_h"]["launches"] = two_h["k1"]["field+per_plane"]
+    train_kernels["k2_two_h"]["launches"] = two_h["k2"]["field+per_plane"]
 
     with Phase("fused eval path: K5 and K4 vs plain versions, then the path at batch 16"):
         k5 = fused_smoke.k5_kernel(card)
@@ -431,10 +433,11 @@ def main():
         k5_bf16_launches, k4_fused, k5_bf16 = fused_smoke.fused_path(card, "bfloat16")
     k4_launches += k4_fused
 
-    with Phase("bf16 main path: training_model --use_gan --dtype bfloat16 at full width"):
-        transfer.reset_launch_counts()
-        train_smoke.training_path(card, "bfloat16")
-        k4_launches += transfer.apply_transfer_stack.launches
+    for option in TRAIN_OPTIONS:
+        with Phase(f"bf16 main path: training_model --use_gan --dtype bfloat16 at full width {option or ''}"):
+            transfer.reset_launch_counts()
+            runs.append(train_smoke.training_path(card, "bfloat16", **option, profile=not option))
+            k4_launches += transfer.apply_transfer_stack.launches
     if k4_launches:
         raise AssertionError(f"K4 launched {k4_launches} times on the main paths, want 0")
 
@@ -442,9 +445,14 @@ def main():
         with Phase(f"small slices: card vs CPU, {dtype}"):
             phase_small_vs_cpu(dtype)
 
+    print("train steps at full width, batch 4, ratio 5 (host clock):", flush=True)
+    for r in runs:
+        print(f"  {r['label']:45s} {r['steps_per_s']:.3f} steps/s, peak {r['peak_gib']:.2f} GiB; "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in r["split"].items()) + f" [{card}]", flush=True)
     print(f"total wall {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)
     kernels = [k1, train_kernels["k1_train"], train_kernels["k2"], train_kernels["k3"],
+               train_kernels["k1_two_h"], train_kernels["k2_two_h"],
                dict(k4.json(), launches=k4_launches), dict(k5.json(), launches=k5_launches),
                dict(k5_bf16.json(), launches=k5_bf16_launches)]
     print(json.dumps({"kernels": kernels}), flush=True)

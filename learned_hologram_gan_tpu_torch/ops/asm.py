@@ -226,11 +226,14 @@ def fused_args(
     from_spectrum: bool = False,
     per_plane: bool = False,
     use_mask: bool = True,
+    mask_override: Optional[torch.Tensor] = None,
 ):
     """The ``propagate_planes`` arguments ``(fr, fi, wl2, dists, mask, cfg)``
     for unpadded (B, C, rows, cols) complex planes ``g``, or the padded
     (B, C, Rp, Cp) spectrum when ``from_spectrum``.  With ``per_plane``,
-    ``distances`` holds one distance per sample, shared by its channels."""
+    ``distances`` holds one distance per sample, shared by its channels.
+    ``mask_override``, an (Rp, Cp) float32 mask, replaces the plan's mask
+    and wins over ``use_mask``."""
     b, cch = g.shape[0], g.shape[1]
     shape = g.shape[-2:]
     fr = g.real.float().reshape(b * cch, *shape).contiguous()
@@ -242,7 +245,10 @@ def fused_args(
     else:
         dvec = distances.float().reshape(-1, 1).contiguous()
         num_d = int(dvec.shape[0])
-    mask = plan.mask if use_mask else None
+    if mask_override is not None:
+        mask = mask_override
+    else:
+        mask = plan.mask if use_mask else None
     cfg = (
         float(plan.pixel_pitch), bool(conj_h), bool(from_spectrum), bool(per_plane),
         num_d, plan.padded_rows, plan.padded_cols,
@@ -260,6 +266,7 @@ def _fused_apply(
     from_spectrum: bool = False,
     per_plane: bool = False,
     use_mask: bool = True,
+    mask_override: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Propagate unpadded (B, C, rows, cols) complex planes (the padded
     (B, C, Rp, Cp) spectrum when ``from_spectrum``) to every distance.
@@ -271,7 +278,7 @@ def _fused_apply(
     from .cuda import spectral
 
     args = fused_args(plan, g, distances, conj_h=conj_h, from_spectrum=from_spectrum,
-                      per_plane=per_plane, use_mask=use_mask)
+                      per_plane=per_plane, use_mask=use_mask, mask_override=mask_override)
     outr, outi = spectral.propagate_planes(*args)
     b, cch, num_d = g.shape[0], g.shape[1], args[-1][4]
     out = torch.complex(outr, outi).reshape(b, cch, num_d, plan.rows, plan.cols)
@@ -412,3 +419,70 @@ def freq2ap_random_distances(
     gz = g0.reshape(2, b, *g0.shape[1:]) * h[None]
     gz = crop(plan, _ifft2(gz.reshape(2 * b, *g0.shape[1:])))
     return gz.abs(), _angle(gz)
+
+
+def hat_target_random_distances(
+    gen_plan: PropagatorPlan,
+    multi_plan: PropagatorPlan,
+    poh: torch.Tensor,
+    target_amp: torch.Tensor,
+    target_phs: torch.Tensor,
+    idx: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two-H hat/target random-distance reconstruction.
+
+    The composition of :func:`propagate_poh2freq_forward`,
+    :func:`filter_ap2filtered_freq` and :func:`freq2ap_random_distances`
+    (reference :386-392, :548-552, :533-546), with the hat branch's fixed
+    SLM -> image H and its focal H folded into one transfer function,
+    H(z1) * H(z2) == H(z1 + z2) on the shared w-grid: neither branch builds a
+    padded spectrum.  Masks as in the composed path: the hat gets
+    ``gen.mask * multi.mask``, the target ``multi.mask ** 2``.  Summing the
+    distances re-rounds the transfer function's phase, so the outputs differ
+    from the composed path's by O(1e-3) relative, as the JAX package's do.
+
+    ``idx`` (B,) indexes the multi plan's distance stack (as for
+    :func:`freq2ap_random_distances`); hat[i] and target[i] share
+    ``idx[i]``.  On a grid K1 supports both branches are one field-input,
+    ``per_plane`` call of ``propagate_planes`` with the mask above; else
+    ``torch.fft``.  Returns (hat_amp, target_amp, hat_phs, target_phs), each
+    (B, C, rows, cols).
+    """
+    if (
+        gen_plan.padded_rows != multi_plan.padded_rows
+        or gen_plan.padded_cols != multi_plan.padded_cols
+        or gen_plan.pixel_pitch != multi_plan.pixel_pitch
+        or gen_plan.wavelengths != multi_plan.wavelengths
+    ):
+        raise ValueError(
+            "two-H hat path needs gen and multi plans on the same padded "
+            "grid/pitch/wavelengths (shared w-grid); got "
+            f"{(gen_plan.padded_rows, gen_plan.padded_cols)} vs "
+            f"{(multi_plan.padded_rows, multi_plan.padded_cols)}."
+        )
+    num_d = multi_plan.num_distances
+    b = poh.shape[0]
+    if b > num_d:
+        raise ValueError(
+            f"random-distance draw needs batch <= num_distances (got batch "
+            f"{b}, {num_d} cached distances)."
+        )
+    if gen_plan.distances is None:
+        raise ValueError("gen_plan needs its fixed distance (make_plan(distances=[z]))")
+    if tuple(idx.shape) != (b,):
+        raise ValueError(f"need one distance index per sample, got {tuple(idx.shape)}")
+    z = multi_plan.distances[idx.to(multi_plan.distances.device)]  # (B,)
+    z_hat = gen_plan.distances[0] + z
+    hat_mask = gen_plan.mask * multi_plan.mask
+    tgt_mask = multi_plan.mask * multi_plan.mask
+    g_hat = field(torch.ones_like(poh), poh)
+    g_tgt = field(target_amp, (2.0 * np.pi) * target_phs)
+    if _fused_ok(multi_plan):
+        hat = _fused_apply(multi_plan, g_hat, z_hat, per_plane=True, mask_override=hat_mask)[:, 0]
+        tgt = _fused_apply(multi_plan, g_tgt, z, per_plane=True, mask_override=tgt_mask)[:, 0]
+    else:
+        h_hat = _transfer_function(multi_plan.w_grid, z_hat) * hat_mask  # (B, C, Rp, Cp)
+        h_tgt = _transfer_function(multi_plan.w_grid, z) * tgt_mask
+        hat = crop(multi_plan, _ifft2(_fft2(pad(multi_plan, g_hat)) * h_hat))
+        tgt = crop(multi_plan, _ifft2(_fft2(pad(multi_plan, g_tgt)) * h_tgt))
+    return hat.abs(), tgt.abs(), _angle(hat), _angle(tgt)

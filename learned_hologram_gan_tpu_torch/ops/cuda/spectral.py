@@ -3,8 +3,9 @@
 Counterpart of ``learned_hologram_gan_tpu/ops/pallas/spectral.py:
 propagate_planes`` (``_planes_fwd_impl`` / ``_planes_bwd_impl`` +
 ``_middle_pass``, the ``pl.pallas_call`` at spectral.py:686) with the same
-signature and all of its modes but ``mask_override``'s callers.  The
-forward on a CUDA tensor:
+signature and all of its modes (``mask`` is any (rp, cp) float32 mask on
+the planes' device: the plan's, or a caller's such as the two-H hat path's
+product of two plans' masks).  The forward on a CUDA tensor:
 
   1. column transform of the field, zero-padded to ``cp`` columns
      (``torch.fft.fft``; the JAX package runs this as a plain XLA GEMM),
@@ -230,14 +231,17 @@ def row_adjoint(g: torch.Tensor, wl2, dists, mask, cfg: Cfg) -> torch.Tensor:
     cotangent; returns (P, rows, cp), or (P, rp, cp) when ``from_spectrum``."""
     out = _launch(True, g, wl2, dists, mask, cfg)
     row_adjoint.launches += 1
+    row_adjoint.launches_by_mode[_mode(cfg)] += 1
     return out
 
 
 def _mode(cfg: Cfg) -> str:
+    """The launch counters' name for ``cfg``'s mode: its input (``field``
+    or ``from_spectrum``; ``conj_h`` is field input with conj(H)), then
+    ``+per_plane`` where each plane has its own distance."""
     _, conj_h, from_spectrum, per_plane, *_ = cfg
-    if from_spectrum:
-        return "from_spectrum+per_plane" if per_plane else "from_spectrum"
-    return "conj_h" if conj_h else ("per_plane" if per_plane else "field")
+    name = "from_spectrum" if from_spectrum else ("conj_h" if conj_h else "field")
+    return name + "+per_plane" if per_plane else name
 
 
 def _forward_cuda(fr, fi, wl2, dists, mask, cfg: Cfg):
@@ -301,6 +305,7 @@ def reset_launch_counts() -> None:
     row_pass.launches = 0
     row_pass.launches_by_mode = collections.Counter()
     row_adjoint.launches = 0
+    row_adjoint.launches_by_mode = collections.Counter()
 
 
 # launches of K1 and K2 (incremented only where the kernel is launched)

@@ -9,20 +9,25 @@ One train step (reference watermelon.py:207-284), in this order:
   4. random-distance reconstruction of concat(hat, target) (K1 in
      ``from_spectrum`` + ``per_plane`` mode): hat[i] and target[i] share
      the drawn distance;
-  5. the critic, ``discriminator_train_ratio`` times: one apply on
-     concat([target, hat]) (the only forward whose BatchNorm statistics
-     update), the WGAN-GP penalty (a ``create_graph`` double backward through
-     the critic on batch statistics, no update), Adam on D;
+  5. the critic, ``discriminator_train_ratio`` times, on detached
+     reconstructions with the WGAN-GP penalty (a ``create_graph`` double
+     backward through the critic on batch statistics), then Adam on D; how
+     the applies are batched is ``critic_batching`` (:func:`critic_updates`);
   6. the 5-term generator loss against the *updated* critic, then its
      backward through the graph of step 1 (K2 twice, K3's adjoint) and
      Adam on G.
 
+With ``two_h_hat`` steps 2-4 are :func:`asm.hat_target_random_distances`:
+each branch is one field-input, ``per_plane`` propagation (K1, and K2 in
+the backward) with a product mask, and no spectrum is built.
+
 The generator runs forward once: the critic sees detached views of its
 output, and step 6 backpropagates through the graph kept from step 1.
-Only ``critic_batching="pair"`` is ported.  Every convolution of a step,
-forward and backward, runs in full float32 (``full_f32_convs``), whatever
-the caller's TF32 setting.  The random draws (distance indices, GP alphas)
-come from ``state.rng`` unless passed in, as the parity tests pass JAX's.
+Every convolution of a step, forward and backward, runs in full float32
+(``full_f32_convs``), whatever the caller's TF32 setting.  The random
+draws (distance indices, GP alphas) come from ``state.rng`` unless passed
+in, as the parity tests pass JAX's.  ``remat`` and spatial meshes are not
+ported.
 """
 
 from __future__ import annotations
@@ -50,13 +55,22 @@ def reconstruct(
     multi_plan: PropagatorPlan,
     batch: Batch,
     idx: torch.Tensor,
+    two_h: bool = False,
 ) -> Recon:
     """Steps 1-4: (hat_amps, target_amps, hat_phs, target_phs), each
     (B, C, rows, cols), hat[i] and target[i] at distance ``idx[i]``.  The
     hat side keeps its graph back to the generator; the target side has
-    none."""
+    none.  ``two_h`` reconstructs through
+    :func:`asm.hat_target_random_distances` (one transfer function per
+    branch, no spectrum built)."""
     rgbd, target_amp, target_phs = batch
     poh = generator(gen_plan, rgbd)
+    if two_h:
+        hat_amps, target_amps, hat_phs, target_phs = asm.hat_target_random_distances(
+            gen_plan, multi_plan, poh, target_amp, target_phs, idx
+        )
+        # the target's inputs carry no graph, so autograd recorded nothing there
+        return hat_amps, target_amps.detach(), hat_phs, target_phs.detach()
     hat_freq = asm.propagate_poh2freq_forward(gen_plan, poh)
     with torch.no_grad():
         target_freq = asm.filter_ap2filtered_freq(multi_plan, target_amp, target_phs)
@@ -86,6 +100,48 @@ def gradient_penalty(
     return ((norms - 1.0) ** 2).mean()
 
 
+CRITIC_BATCHINGS = ("separate", "pair", "full")
+
+
+def _critic_loss(
+    critic: torch.nn.Module,
+    real: torch.Tensor,
+    fake: torch.Tensor,
+    alpha: torch.Tensor,
+    discriminator_lambda: float,
+    critic_batching: str,
+) -> torch.Tensor:
+    """One critic iteration's WGAN-GP loss, -D(real) + D(fake) + lambda GP,
+    with the applies batched as the JAX step batches them
+    (``train/steps.py:319-397``):
+
+      * "separate": D(real), then D(fake), each updating the running
+        statistics, then the penalty's apply on frozen statistics;
+      * "pair": one apply on concat([real, fake]) (statistics over 2B,
+        updated once), then the penalty's apply;
+      * "full": one apply on concat([real, fake, interp]): statistics over
+        3B, updated once, so the penalty's gradient carries the BatchNorm
+        coupling of the joint batch.
+    """
+    b = real.shape[0]
+    if critic_batching == "separate":
+        real_v, fake_v = critic(real), critic(fake)
+        gp = gradient_penalty(critic, real, fake, alpha)
+    elif critic_batching == "pair":
+        both_v = critic(torch.cat([real, fake], dim=0))
+        real_v, fake_v = both_v[:b], both_v[b:]
+        gp = gradient_penalty(critic, real, fake, alpha)
+    else:
+        interp = (alpha * real + (1.0 - alpha) * fake).requires_grad_(True)
+        out = critic(torch.cat([real, fake, interp], dim=0))
+        out = out.reshape(out.shape[0], -1)  # scores per sample, as JAX slices them
+        (grads,) = torch.autograd.grad(out[2 * b:].sum(), interp, create_graph=True)
+        norms = torch.sqrt((grads.reshape(b, -1) ** 2).sum(dim=1) + 1e-12)
+        gp = ((norms - 1.0) ** 2).mean()
+        real_v, fake_v = out[:b], out[b:2 * b]
+    return -real_v.mean() + fake_v.mean() + discriminator_lambda * gp
+
+
 @full_f32_convs()
 def critic_updates(
     state: TrainState,
@@ -93,17 +149,17 @@ def critic_updates(
     hat_amps: torch.Tensor,
     alphas: torch.Tensor,
     discriminator_lambda: float,
+    critic_batching: str = "pair",
 ) -> torch.Tensor:
-    """Step 5: ``len(alphas)`` critic updates on detached reconstructions;
+    """Step 5: ``len(alphas)`` critic updates on detached reconstructions,
+    each batched as ``critic_batching`` says (:func:`_critic_loss`);
     returns the mean critic loss (0 when there are none)."""
     critic = state.discriminator
     params = [p for p in critic.parameters() if p.requires_grad]
-    b = target_amps.shape[0]
     losses = []
     for alpha in alphas:
-        both_v = critic(torch.cat([target_amps, hat_amps], dim=0))
-        gp = gradient_penalty(critic, target_amps, hat_amps, alpha)
-        loss = -both_v[:b].mean() + both_v[b:].mean() + discriminator_lambda * gp
+        loss = _critic_loss(critic, target_amps, hat_amps, alpha, discriminator_lambda,
+                            critic_batching)
         state.opt_D.zero_grad(set_to_none=True)
         loss.backward(inputs=params)
         state.opt_D.step()
@@ -179,14 +235,21 @@ def build_train_step(
     use_gan: bool,
     discriminator_train_ratio: int,
     discriminator_lambda: float,
+    critic_batching: str = "pair",
+    two_h_hat: bool = False,
 ) -> Callable:
     """Build ``train_step(state, batch, gen_plan, multi_plan, idx=None,
     alphas=None) -> (state, metrics)``, which updates ``state`` in place.
 
-    ``idx`` (B,) and ``alphas`` (ratio, B, 1, 1, 1) override the draws from
-    ``state.rng``.  ``metrics`` holds 0-dim tensors on the batch's device.
+    ``critic_batching`` ("separate", "pair" or "full") structures each
+    critic iteration (:func:`_critic_loss`); ``two_h_hat`` reconstructs
+    through :func:`asm.hat_target_random_distances`.  ``idx`` (B,) and
+    ``alphas`` (ratio, B, 1, 1, 1) override the draws from ``state.rng``.
+    ``metrics`` holds 0-dim tensors on the batch's device.
     """
-    ratio =discriminator_train_ratio if use_gan else 0
+    if critic_batching not in CRITIC_BATCHINGS:
+        raise ValueError(f"unknown critic_batching {critic_batching!r}")
+    ratio = discriminator_train_ratio if use_gan else 0
 
     def train_step(state: TrainState, batch: Batch, gen_plan, multi_plan, idx=None, alphas=None):
         b = batch[0].shape[0]
@@ -195,10 +258,10 @@ def build_train_step(
         alphas = drawn_alphas if alphas is None else alphas
         state.generator.train()
         state.discriminator.train()
-        recon = reconstruct(state.generator, gen_plan, multi_plan, batch, idx)
+        recon = reconstruct(state.generator, gen_plan, multi_plan, batch, idx, two_h=two_h_hat)
         hat_d, target_d = recon[0].detach(), recon[1]
         d_loss = critic_updates(
-            state, target_d, hat_d, alphas.to(hat_d.device), discriminator_lambda
+            state, target_d, hat_d, alphas.to(hat_d.device), discriminator_lambda, critic_batching
         )
         metrics = generator_update(state, loss_cfg, recon)
         with torch.no_grad():

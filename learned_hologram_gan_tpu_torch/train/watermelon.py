@@ -3,10 +3,9 @@
 checkpoints, the loss/metric history and the visualizations.
 
 Constructor and ``train`` keep the JAX package's arguments.  The ones this
-port does not support yet (remat, uncached H, spatial meshes, critic
-batchings other than "pair", the two-H hat path, polyphase level 0,
-column-pad overrides, part-wise pretraining and freezing, full-state
-resume) raise ``NotImplementedError`` naming the argument and its CLI flag.
+port does not support yet (remat, uncached H, spatial meshes, polyphase
+level 0, column-pad overrides, part-wise pretraining and freezing,
+full-state resume) raise ``NotImplementedError`` naming the argument and its CLI flag.
 The history JSON keeps the reference's key layout (watermelon.py:169-194).
 The ablation subclasses of the reference are factory functions, as in the
 JAX package.
@@ -89,8 +88,6 @@ class Watermelon:
             (remat, "remat", "remat"),
             (not cache_h, "cache_h=False", "no_cache_h"),
             (spatial_mesh is not None, "spatial_mesh", "spatial_mesh_devices"),
-            (critic_batching != "pair", f"critic_batching={critic_batching!r}", "critic_batching"),
-            (two_h_hat, "two_h_hat", "two_h_hat"),
             (polyphase_level0, "polyphase_level0", "polyphase_level0"),
             (pad_cols_override is not None, "pad_cols_override", None),
             (freeze_part1, "freeze_part1", "freeze_part1"),
@@ -100,6 +97,8 @@ class Watermelon:
         for bad, name, flag in refused:
             if bad:
                 _refuse(name, flag)
+        self.critic_batching = critic_batching
+        self.two_h_hat = two_h_hat
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device cuda asked for, but no CUDA device is available")
@@ -228,7 +227,8 @@ class Watermelon:
         # kept on the trainer, with its state and plans, for callers that
         # step or validate it further
         self.train_step = train_step = build_train_step(
-            self.loss_cfg, self.use_gan, discriminator_train_ratio, discriminator_lambda
+            self.loss_cfg, self.use_gan, discriminator_train_ratio, discriminator_lambda,
+            critic_batching=self.critic_batching, two_h_hat=self.two_h_hat,
         )
         self.eval_step = build_eval_step(self.loss_cfg)
 

@@ -4,19 +4,25 @@
   train step's full-width shapes, each against its plain version (and K2
   against ``torch.autograd`` through K1's plain version), with its time,
   the plain version's, a one-call library yardstick and the card's bound;
+* :func:`two_h_kernels`: K1 and K2 in the two-H hat path's mode (field
+  input, a distance per plane, a caller's product mask) at the same shapes,
+  measured the same way;
 * :func:`training_path`: ``training_model.main --use_gan --perceptual
-  random --dtype <dtype>`` at full width on seeded random data, then one
-  validation batch through the trainer's eval step, with the launch
-  counters reset before and read after, and the convolutions' compute
-  dtypes recorded (in bfloat16: the generator's and the critic's bfloat16,
-  VGG19's float32); then steps/s, the peak memory and a split of one step
-  by CUDA events and by ``torch.profiler``.
+  random --dtype <dtype>``, with ``--two_h_hat`` or ``--critic_batching``
+  where asked, at full width on seeded random data, then one validation
+  batch through the trainer's eval step, with the launch counters reset
+  before and read after (each kernel's launches, by mode, held to what the
+  code makes), and the convolutions' compute dtypes recorded (in bfloat16:
+  the generator's and the critic's bfloat16, VGG19's float32); then
+  steps/s, the steps' peak memory and a split of one step by CUDA events
+  (and, where asked, by ``torch.profiler``).
 
-Both raise on any failure.
+Each raises on any failure.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import tempfile
@@ -31,6 +37,7 @@ from .utils.cuda_measure import (
     check_rel,
     cuda_ms,
     fft_flops,
+    k1_work,
     profile_kernels,
 )
 
@@ -39,7 +46,7 @@ PAD = 320
 # trainingModel.py:103-160: 20 distances, batch 4 (validation 2), ratio 5, lambda 10
 DISTANCES = np.linspace(-4e-4, 0.0, 21)[:-1]
 BATCH, VAL_BATCH, RATIO, LAMBDA = 4, 2, 5, 10.0
-SAMPLES, STEPS = 12, 3  # one epoch of 3 steps
+SAMPLES, STEPS = 8, 2  # one epoch of 2 steps
 
 
 class _Entry:
@@ -76,6 +83,31 @@ def _random_complex(rng, shape, dev):
     re = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
     im = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
     return torch.complex(re, im)
+
+
+def _add_k2(entry, card, rng, name, args, library, nbytes, flops):
+    """K2 on the planes of ``args`` (``propagate_planes``' arguments) and a
+    seeded random cotangent, against its plain version and against
+    ``torch.autograd`` through K1's plain version, then timed into
+    ``entry`` beside ``library``, which takes the cotangent as
+    (B, 3, rows, cols)."""
+    from .ops.cuda import spectral
+
+    fr, fi, wl2, dvec, mask, kcfg = args
+    g = _random_complex(rng, (fr.shape[0], kcfg[4], ROWS, COLS), fr.device)
+    gr, gi = g.real.contiguous(), g.imag.contiguous()
+    kr, ki = spectral._adjoint_cuda(gr, gi, wl2, dvec, mask, kcfg)
+    err = check_rel(name, kr, ki, *spectral.propagate_planes_adjoint_reference(gr, gi, wl2, dvec, mask, kcfg))
+    fr_, fi_ = fr.clone().requires_grad_(True), fi.clone().requires_grad_(True)
+    pr, pi = spectral.propagate_planes_reference(fr_, fi_, wl2, dvec, mask, kcfg)
+    check_rel(name + " vs autograd", kr, ki, *torch.autograd.grad((pr * gr + pi * gi).sum(), (fr_, fi_)))
+    del kr, ki, pr, pi
+    x = torch.fft.fft(torch.nn.functional.pad(g, (PAD, PAD)), dim=-1)
+    lib_in = g.reshape(-1, 3, ROWS, COLS)
+    entry.add(name, card, err, lambda: spectral._adjoint_cuda(gr, gi, wl2, dvec, mask, kcfg),
+              lambda: spectral.propagate_planes_adjoint_reference(gr, gi, wl2, dvec, mask, kcfg),
+              lambda: library(lib_in), lambda: spectral.row_adjoint(x, wl2, dvec, mask, kcfg),
+              nbytes, flops)
 
 
 def training_kernels(card):
@@ -138,28 +170,14 @@ def training_kernels(card):
          lambda g: asm.crop(gen_plan, torch.fft.ifft2(torch.fft.fft2(asm.pad(gen_plan, g)) * gen_plan.H[0]))),
     ]
     for name, args, library in calls:
-        fr, fi, wl2, dvec, mask, kcfg = args
-        p, num_d, from_spectrum = fr.shape[0], kcfg[4], kcfg[2]
-        g = _random_complex(rng, (p, num_d, ROWS, COLS), dev)
-        gr, gi = g.real.contiguous(), g.imag.contiguous()
-        kr, ki = spectral._adjoint_cuda(gr, gi, wl2, dvec, mask, kcfg)
-        err = check_rel(name, kr, ki, *spectral.propagate_planes_adjoint_reference(gr, gi, wl2, dvec, mask, kcfg))
-        fr_, fi_ = fr.clone().requires_grad_(True), fi.clone().requires_grad_(True)
-        pr, pi = spectral.propagate_planes_reference(fr_, fi_, wl2, dvec, mask, kcfg)
-        check_rel(name + " vs autograd", kr, ki, *torch.autograd.grad((pr * gr + pi * gi).sum(), (fr_, fi_)))
-        del kr, ki, pr, pi
-        x = torch.fft.fft(torch.nn.functional.pad(g, (PAD, PAD)), dim=-1)
+        p, num_d, from_spectrum = args[0].shape[0], args[-1][4], args[-1][2]
         out_rows, out_cols = (rp, cp) if from_spectrum else (ROWS, COLS)
         flops = fft_flops(cp, p * num_d * ROWS) + fft_flops(rp, p * num_d * cp) + p * num_d * rp * cp * 16
         if not from_spectrum:
             flops += fft_flops(rp, p * cp) + fft_flops(cp, p * ROWS)
-        lib_in = g.reshape(-1, 3, ROWS, COLS)
-        k2.add(name, card, err, lambda: spectral._adjoint_cuda(gr, gi, wl2, dvec, mask, kcfg),
-               lambda: spectral.propagate_planes_adjoint_reference(gr, gi, wl2, dvec, mask, kcfg),
-               lambda: library(lib_in), lambda: spectral.row_adjoint(x, wl2, dvec, mask, kcfg),
-               2 * p * num_d * ROWS * COLS * 4 + 2 * p * out_rows * out_cols * 4
-               + (rp * cp * 4 if mask is not None else 0), flops)
-        del x, g, gr, gi, lib_in
+        _add_k2(k2, card, rng, name, args, library,
+                2 * p * num_d * ROWS * COLS * 4 + 2 * p * out_rows * out_cols * 4
+                + (rp * cp * 4 if args[4] is not None else 0), flops)
     del spec, hm, per_plane
 
     # K3: one step's 2-D transforms of (12, 1024, 1024): the hat and target
@@ -190,6 +208,57 @@ def training_kernels(card):
     return dict(k1_train=k1.json(), k2=k2.json(), k3=k3.json())
 
 
+def two_h_kernels(card):
+    """K1 and K2 on the two-H path's calls at full width: the hat (the POH
+    field at z_hat = 1 mm + z, mask gen * multi) and the target (at z, mask
+    multi ** 2), 12 field planes of 384 x 384 each, a distance per plane,
+    the masks computed on the card; K2 on the hat's adjoint.  The library
+    yardstick is the cached-H ``torch.fft`` chain, fft2(pad(g)) * H * mask
+    -> ifft2 -> crop, and its adjoint.  Returns their JSON entries,
+    ``launches`` still to be filled in."""
+    from .config import OpticsConfig
+    from .ops import asm
+    from .ops.cuda import spectral
+
+    dev = torch.device("cuda")
+    optics = OpticsConfig(rows=ROWS, cols=COLS, pad_size=PAD, filter_radius_coefficient=0.45)
+    plan = asm.make_plan(optics, distances=DISTANCES, device=dev)
+    gen_plan = asm.make_plan(optics, distances=[1e-3], device=dev)
+    rp, cp = plan.padded_rows, plan.padded_cols
+    rng = np.random.default_rng(5)
+    z = plan.distances[torch.from_numpy(rng.permutation(len(DISTANCES))[:BATCH]).to(dev)]
+    shape = (BATCH, 3, ROWS, COLS)
+    poh, amp, phs = (torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev) for _ in range(3))
+    calls = [("hat", asm.field(torch.ones_like(poh), 2 * np.pi * poh), gen_plan.distances[0] + z,
+              gen_plan.mask * plan.mask),
+             ("target", asm.field(amp, 2 * np.pi * phs), z, plan.mask * plan.mask)]
+    k1_src = "learned_hologram_gan_tpu_torch/csrc/k1_asm_propagate.cu"
+    k1_at = "learned_hologram_gan_tpu/ops/pallas/spectral.py:686"
+    k1 = _Entry("k1_two_h", k1_src, k1_at, "one two-H train step: hat + target, 12 field planes each, "
+                "per_plane, product masks, 384x384 in 1024x1024")
+    k2 = _Entry("k2_two_h", k1_src, k1_at, "one two-H train step's backward: the hat's adjoint, "
+                "12 planes, per_plane, product mask, 384x384 in 1024x1024")
+    for name, g, dists, mask in calls:
+        args = asm.fused_args(plan, g, dists, per_plane=True, mask_override=mask)
+        fr, fi, wl2, dvec, m, kcfg = args
+        err = check_rel(f"K1 field+per_plane, {name} mask", *spectral.propagate_planes(*args),
+                        *spectral.propagate_planes_reference(*args))
+        hm = asm._transfer_function(plan.w_grid, dists) * mask  # (B, C, rp, cp), cached
+        x = torch.fft.fft(torch.nn.functional.pad(torch.complex(fr, fi), (PAD, PAD)), dim=-1)
+        work = k1_work(fr.shape[0], ROWS, COLS, rp, cp, 1, True)
+        k1.add(f"K1 field+per_plane ({name})", card, err, lambda: spectral.propagate_planes(*args),
+               lambda: spectral.propagate_planes_reference(*args),
+               lambda: asm.crop(plan, torch.fft.ifft2(torch.fft.fft2(asm.pad(plan, g)) * hm)),
+               lambda: spectral.row_pass(x, wl2, dvec, m, kcfg), *work)
+        if name == "hat":
+            _add_k2(k2, card, rng, "K2 field+per_plane (hat)", args,
+                    lambda cot: asm.crop(plan, torch.fft.ifft2(torch.fft.fft2(asm.pad(plan, cot)) * torch.conj(hm))),
+                    *work)
+    del calls, poh, amp, phs, x, hm
+    torch.cuda.empty_cache()
+    return dict(k1_two_h=k1.json(), k2_two_h=k2.json())
+
+
 def _write_bins(tmp):
     """SAMPLES seeded random training samples; 100 validation samples as
     sparse all-zero files (the CLI hard-codes 100 and reads what it uses).
@@ -208,16 +277,48 @@ def _write_bins(tmp):
     return argv, train
 
 
-def training_path(card, dtype="float32"):
+def _counts():
+    from .ops.cuda import fft, spectral
+
+    return dict(k1=dict(spectral.row_pass.launches_by_mode), k2=dict(spectral.row_adjoint.launches_by_mode),
+                k3=fft.fft_axis.launches)
+
+
+def expected_launches(two_h_hat):
+    """K1 and K2 launches by mode and K3's (one launch per pass, two per 2-D
+    transform) that the code makes in ``training_model.main``'s STEPS steps
+    and its end-of-epoch visualization (AP2POH, then the POH at 1 mm), and
+    in one eval step.  A step runs AP2POH (K1 conj_h; K2 in the backward)
+    and then either the two-H reconstruction, K1 twice in field+per_plane
+    mode and K2 once, no K3; or the composed one: two fft2 (K3), K1 once in
+    from_spectrum+per_plane mode, K2 once and fft2's adjoint (K3).  The
+    eval step: AP2POH, two fft2, the 20-distance stack."""
+    if two_h_hat:
+        main = dict(k1={"conj_h": STEPS + 1, "field+per_plane": 2 * STEPS, "field": 1},
+                    k2={"conj_h": STEPS, "field+per_plane": STEPS}, k3=0)
+    else:
+        main = dict(k1={"conj_h": STEPS + 1, "from_spectrum+per_plane": STEPS, "field": 1},
+                    k2={"conj_h": STEPS, "from_spectrum+per_plane": STEPS}, k3=6 * STEPS)
+    return main, dict(k1={"conj_h": 1, "from_spectrum": 1}, k2={}, k3=4)
+
+
+def training_path(card, dtype="float32", two_h_hat=False, critic_batching="pair", profile=False):
     """The training path through ``training_model.main`` at full width in
-    ``dtype``, then one validation batch through the trainer's eval step
-    (the CLI validates every 50 steps; this epoch has 3).  Returns the
-    kernels' launches on that run."""
+    ``dtype`` with the step options, then one validation batch through the
+    trainer's eval step (the CLI validates every 50 steps; this epoch has
+    2).  Then, on the trainer's state, one warm-up step (the first after the
+    eval step's allocations), 2 steps timed by the host clock, with the
+    peak memory from the warm-up on, one step split by CUDA events and,
+    with ``profile``, the same split under ``torch.profiler``.  Returns the
+    kernels' launches on the main path's run (:func:`_counts`; ``in_main``
+    without the eval step) and the step's numbers."""
     from . import card_check, training_model
     from .data import ImgDepthAmpPhsDataset, epoch_loader
     from .ops.cuda import fft, spectral
     from .train import steps
 
+    label = f"--dtype {dtype}" + (" --two_h_hat" if two_h_hat else "") + (
+        "" if critic_batching == "pair" else f" --critic_batching {critic_batching}")
     with tempfile.TemporaryDirectory(prefix="train_smoke_") as tmp:
         out = os.path.join(tmp, "out")
         argv, train_paths = _write_bins(tmp)
@@ -228,7 +329,8 @@ def training_path(card, dtype="float32"):
             "--loss_metrics_file", os.path.join(out, "history.json"),
             "--save_path_img", os.path.join(out, "imgs"),
             "--use_gan", "--perceptual", "random", "--device", "cuda", "--dtype", dtype,
-        ]
+            "--critic_batching", critic_batching,
+        ] + (["--two_h_hat"] if two_h_hat else [])
         dataset = ImgDepthAmpPhsDataset(*train_paths, SAMPLES, 3, ROWS, COLS)
         # the main path's run: counters to 0 just before, read just after
         torch.cuda.reset_peak_memory_stats()
@@ -238,25 +340,27 @@ def training_path(card, dtype="float32"):
         start = time.perf_counter()
         with card_check.record_conv_tf32(fwd, bwd, dtypes):
             trainer, _ = training_model.main(argv)
+            torch.cuda.synchronize()
+            in_main = _counts()
             val_batch = next(epoch_loader(dataset, VAL_BATCH, shuffle=False, drop_last=True))
             val = trainer.eval_step(trainer.state, val_batch, trainer.gen_plan, trainer.multi_plan)
             val = {k: float(v) for k, v in val.items()}
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-        launches = dict(k1=spectral.row_pass.launches, k1_modes=dict(spectral.row_pass.launches_by_mode),
-                        k2=spectral.row_adjoint.launches, k3=fft.fft_axis.launches)
-        print(f"training_model.main --dtype {dtype} ({STEPS} steps, weights init and first-call "
-              f"setup included) + one eval step: {wall:.2f} s; convolutions computed in "
-              f"{sorted(str(d) for d in dtypes)}; launches K1 {launches['k1']} {launches['k1_modes']}, "
-              f"K2 {launches['k2']}, K3 {launches['k3']}; TF32 on in {sum(fwd)} of {len(fwd)} "
-              f"convolution forwards and {sum(bwd)} of {len(bwd)} backwards; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+        launches = _counts()
+        in_eval = {k: launches[k] - in_main[k] if k == "k3" else
+                   dict(collections.Counter(launches[k]) - collections.Counter(in_main[k])) for k in launches}
+        print(f"training_model.main {label} ({STEPS} steps, weights init and first-call setup "
+              f"included) + one eval step: {wall:.2f} s; convolutions computed in "
+              f"{sorted(str(d) for d in dtypes)}; launches in main {in_main}, in the eval step "
+              f"{in_eval}; TF32 on in {sum(fwd)} of {len(fwd)} convolution forwards and {sum(bwd)} of "
+              f"{len(bwd)} backwards; peak memory of the run {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"[{card}]", flush=True)
         print("eval step metrics: " + ", ".join(f"{k} {v:.6g}" for k, v in val.items()), flush=True)
-        for mode in ("conj_h", "from_spectrum+per_plane", "from_spectrum"):
-            if not launches["k1_modes"].get(mode):
-                raise AssertionError(f"K1 did not launch in mode {mode} on the training path")
-        if launches["k2"] == 0 or launches["k3"] == 0:
-            raise AssertionError("K2 or K3 did not launch on the training path")
+        want_main, want_eval = expected_launches(two_h_hat)
+        if (in_main, in_eval) != (want_main, want_eval):
+            raise AssertionError(f"launches on the training path: main {in_main}, eval {in_eval}; "
+                                 f"want {want_main}, {want_eval}")
         if not fwd or not bwd or any(fwd) or any(bwd):
             raise AssertionError("the training path ran float32 convolutions with TF32 on")
         if dtypes != {torch.float32, getattr(torch, dtype)}:  # VGG19 stays float32
@@ -285,21 +389,25 @@ def training_path(card, dtype="float32"):
 
     # steps/s and where one step's time goes, on the trainer's own state
     state, plans = trainer.state, (trainer.gen_plan, trainer.multi_plan)
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(state, loader[0], *plans)
+    timed_steps = [loader[1 % len(loader)], loader[0]]
     torch.cuda.synchronize()
     start = time.perf_counter()
-    for batch in loader:
+    for batch in timed_steps:
         _, metrics = trainer.train_step(state, batch, *plans)
     torch.cuda.synchronize()
-    step_s = (time.perf_counter() - start) / len(loader)
+    step_s = (time.perf_counter() - start) / len(timed_steps)
     if not all(bool(torch.isfinite(v)) for v in metrics.values()):
         raise AssertionError(f"non-finite train metrics: {metrics}")
     print("train step metrics: " + ", ".join(f"{k} {float(v):.6g}" for k, v in metrics.items()), flush=True)
 
     def phases(batch, timed):
         idx, alphas = steps.draw_step_randoms(state, trainer.multi_plan, BATCH, RATIO)
-        recon = timed("G forward + reconstruction", lambda: steps.reconstruct(state.generator, *plans, batch, idx))
+        recon = timed("G forward + reconstruction",
+                      lambda: steps.reconstruct(state.generator, *plans, batch, idx, two_h=two_h_hat))
         timed("critic loop", lambda: steps.critic_updates(
-            state, recon[1], recon[0].detach(), alphas.cuda(), LAMBDA))
+            state, recon[1], recon[0].detach(), alphas.cuda(), LAMBDA, critic_batching))
         timed("G loss + backward + Adam", lambda: steps.generator_update(state, trainer.loss_cfg, recon))
 
     split = {}
@@ -316,12 +424,15 @@ def training_path(card, dtype="float32"):
     for batch in loader[:1]:
         phases(batch, timed)
     total = sum(split.values())
-    print(f"train step at full width ({dtype}, batch {BATCH}, ratio {RATIO}): {1 / step_s:.3f} steps/s "
-          f"({step_s * 1e3:.1f} ms, {len(loader)} steps, host clock); split by CUDA events: "
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train step at full width ({label}, batch {BATCH}, ratio {RATIO}): {1 / step_s:.3f} steps/s "
+          f"({step_s * 1e3:.1f} ms, {len(timed_steps)} steps, host clock); split by CUDA events: "
           + ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.1f} %)" for k, v in split.items())
-          + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
-    # the same split under the profiler: kernels and the device's busy share
-    phases(loader[0], lambda label, fn: profile_kernels(label, fn, card))
+          + f"; peak memory of the steps {peak_gib:.2f} GiB [{card}]", flush=True)
+    if profile:
+        # the same split under the profiler: kernels and the device's busy share
+        phases(loader[0], lambda label, fn: profile_kernels(label, fn, card))
     del trainer, state
     torch.cuda.empty_cache()
-    return launches
+    return dict(launches=launches, in_main=in_main, label=label, steps_per_s=1 / step_s,
+                peak_gib=peak_gib, split=split)

@@ -17,10 +17,10 @@ non-adversarial variant; ``--use_gan`` runs the full WGAN-GP loop::
 
 Checkpoints are torch ``state_dict`` files.  Flags of the JAX package that
 the port does not support yet (``--mesh_devices``,
-``--spatial_mesh_devices``, ``--two_h_hat``, ``--remat``, ``--no_cache_h``,
+``--spatial_mesh_devices``, ``--remat``, ``--no_cache_h``,
 ``--polyphase_level0``, ``--resume_dir``, ``--freeze_part1``,
-``--pretrained_part1/2``, ``--device_resident_data``, ``--critic_batching``
-other than ``pair``) raise ``NotImplementedError`` naming the flag.
+``--pretrained_part1/2``, ``--device_resident_data``) raise
+``NotImplementedError`` naming the flag.
 """
 
 from __future__ import annotations
@@ -98,9 +98,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--resume_dir', type=str, default=None,
                         help="Directory for full-train-state checkpoints (not ported yet).")
     parser.add_argument('--critic_batching', type=str, default='pair', choices=['separate', 'pair', 'full'],
-                        help="WGAN-GP critic apply structure per iteration (only 'pair' is ported).")
+                        help="WGAN-GP critic apply structure per iteration: 'separate' (real, fake and "
+                             "penalty applies), 'pair' (one apply on [real; fake]) or 'full' (one apply on "
+                             "[real; fake; interpolates]).")
     parser.add_argument('--two_h_hat', action='store_true',
-                        help="Fold the fixed and focal transfer functions of the hat branch (not ported yet).")
+                        help="Fold the fixed and focal transfer functions of the hat branch into one "
+                             "(no spectrum built; O(1e-3) off the composed path).")
     parser.add_argument('--polyphase_level0', action='store_true',
                         help="UNet level 0 in the space-to-depth phase domain (not ported yet).")
     parser.add_argument('--device_resident_data', action='store_true',

@@ -50,6 +50,31 @@ def bound_ms(nbytes, flops, peak_flop_per_s=PEAK_F32_FLOP_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k1_work(p, rows, cols, rp, cp, num_d, masked):
+    """Bytes and operations of propagate_planes (K1) on field input, and of
+    its adjoint (K2), which mirrors it: fr, fi, wl2, dists and the mask read
+    once, the cropped result written once; the column transform of the
+    nonzero rows, the row transform once per plane, the inverse row
+    transform per distance, the inverse column transform of the cropped
+    rows, and H (2 mul + add for fx^2 + fy^2, sub, sqrt, 2 mul for theta,
+    sin + cos counted as 2), the complex multiply (6) and the mask (2)."""
+    in_bytes = 2 * p * rows * cols * 4 + p * 4 + num_d * 4 + (rp * cp * 4 if masked else 0)
+    out_bytes = 2 * p * num_d * rows * cols * 4
+    flops = (
+        fft_flops(cp, p * rows)
+        + fft_flops(rp, p * cp)
+        + fft_flops(rp, p * num_d * cp)
+        + fft_flops(cp, p * num_d * rows)
+        + p * num_d * rp * cp * (8 + 6 + (2 if masked else 0))
+    )
+    return in_bytes + out_bytes, flops
+
+
+def k1_bound_ms(p, rows, cols, rp, cp, num_d, masked):
+    """Least time for :func:`k1_work`'s work on the card, and its kind."""
+    return bound_ms(*k1_work(p, rows, cols, rp, cp, num_d, masked))
+
+
 def relative_errors(kr, ki, rr, ri):
     """max |err|, max and p99.9 of |err| / max |plain|, and max |plain|."""
     err = torch.sqrt((kr - rr) ** 2 + (ki - ri) ** 2).flatten()

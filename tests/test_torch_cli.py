@@ -143,10 +143,36 @@ def test_train_step_card_check_on_cpu():
     assert stats["convs_forward"] > 0 and stats["convs_backward"] > 0
     with pytest.raises(AssertionError, match="K1 did not launch"):
         card_check.check_train_step(stats)
-    card_check.check_train_step(dict(stats, k1_launches=2, k2_launches=2, k3_launches=6))
+    ran = dict(stats, k1_launches=2, k2_launches=2, k3_launches=6)
+    card_check.check_train_step(ran)
     with pytest.raises(AssertionError, match="backward with TF32 on"):
-        card_check.check_train_step(dict(stats, k1_launches=2, k2_launches=2, k3_launches=6,
-                                         convs_backward_tf32=1))
+        card_check.check_train_step(dict(ran, convs_backward_tf32=1))
+    # float32: a critic running-mean excess the recorded cause does not explain
+    with pytest.raises(AssertionError, match="moved apart by < lr/2"):
+        card_check.check_train_step(dict(ran, stats_D_mean_unexplained=2e-5))
+
+
+@pytest.mark.parametrize("option", [dict(two_h_hat=True), dict(critic_batching="separate"),
+                                    dict(critic_batching="full")], ids=["two_h_hat", "separate", "full"])
+def test_train_step_card_check_options_on_cpu(option):
+    """The train-step card check with each step option, the CPU in both
+    places: identical results, the critic's running means identical in
+    every channel, and check_train_step() wants the two-H path's launches
+    (K1 twice and K2 once in field+per_plane mode, no K3)."""
+    stats = card_check.train_step_card_vs_cpu("cpu", **option)
+    assert all(a == b for a, b in stats["metrics"].values())
+    assert stats["grad_G_rel"] == 0 and stats["grad_D_rel"] == 0
+    assert stats["stats_D_mean_over_1e5"] == [] and stats["stats_D_mean_unexplained"] == 0
+    ran = dict(k1_launches=3, k2_launches=2, k3_launches=0, k1_modes={"conj_h": 1, "field+per_plane": 2},
+               k2_modes={"conj_h": 1, "field+per_plane": 1})
+    if not stats["two_h_hat"]:
+        ran = dict(k1_launches=2, k2_launches=2, k3_launches=6)
+    card_check.check_train_step(dict(stats, **ran))
+    if stats["two_h_hat"]:
+        with pytest.raises(AssertionError, match="K3 launched 6 times on the two-H path"):
+            card_check.check_train_step(dict(stats, **dict(ran, k3_launches=6)))
+        with pytest.raises(AssertionError, match="K1 launched 1 times in mode field"):
+            card_check.check_train_step(dict(stats, **dict(ran, k1_modes={"field+per_plane": 1})))
 
 
 def test_generate_poh_refuses_what_is_not_ported(tmp_path):
@@ -243,6 +269,28 @@ def test_training_model_cpu_writes_checkpoints_history_and_pngs(tmp_path, capsys
     assert trainer.state.step == 1
     for p in trainer.state.discriminator.parameters():
         assert torch.isfinite(p).all()
+
+
+@pytest.mark.parametrize("extra", [["--two_h_hat"], ["--critic_batching", "separate"],
+                                   ["--critic_batching", "full"]],
+                         ids=["two_h_hat", "separate", "full"])
+def test_training_model_cpu_runs_the_step_options(tmp_path, extra):
+    """The train step's options through the CLI at 16 x 16 (656 x 656 grid:
+    the composable two-H branch): one step, the checkpoints of both nets
+    and the history, as the default step writes them, and finite weights."""
+    trainer, history = training_model.main(_train_argv(tmp_path, ["--use_gan", "--perceptual", "none", *extra]))
+    assert (trainer.two_h_hat, trainer.critic_batching) == (
+        "--two_h_hat" in extra, extra[1] if "--critic_batching" in extra else "pair")
+    assert trainer.state.step == 1
+    names = set(os.listdir(tmp_path / "out"))
+    assert {"G.pt", "D.pt", "G_epoch0.pt", "D_epoch0.pt", "history.json", "imgs"} <= names
+    for name, net in (("G.pt", trainer.state.generator), ("D.pt", trainer.state.discriminator)):
+        sd = torch.load(tmp_path / "out" / name, weights_only=True)
+        assert set(sd) == set(net.state_dict())
+        assert all(torch.isfinite(p).all() for p in net.parameters())
+    with open(tmp_path / "out" / "history.json") as f:
+        assert set(json.load(f)) == set(history)
+    assert all(np.isfinite(v).all() for v in history["train_losses_tensor"].values())
 
 
 def test_training_model_cpu_bfloat16(tmp_path):
@@ -359,9 +407,9 @@ def test_training_model_flag_parity():
 
 UNPORTED_TRAINING_FLAGS = [
     ["--mesh_devices", "2"], ["--spatial_mesh_devices", "2"],
-    ["--two_h_hat"], ["--remat"], ["--no_cache_h"], ["--polyphase_level0"],
+    ["--remat"], ["--no_cache_h"], ["--polyphase_level0"],
     ["--resume_dir", "r"], ["--freeze_part1"], ["--pretrained_part1", "p"],
-    ["--pretrained_part2", "p"], ["--device_resident_data"], ["--critic_batching", "separate"],
+    ["--pretrained_part2", "p"], ["--device_resident_data"],
 ]
 
 

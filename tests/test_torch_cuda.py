@@ -47,18 +47,22 @@ def assert_rel_close(kr, ki, rr, ri):
     assert float(rel.sort().values[int(0.999 * (rel.numel() - 1))]) <= P999_REL
 
 
-# (conj_h, num_d, from_spectrum, per_plane): the inference modes, then the
-# training ones (the eval step's from_spectrum stack, the random distances)
+# (conj_h, num_d, from_spectrum, per_plane, mask_override): the inference
+# modes, then the training ones (the eval step's from_spectrum stack, the
+# random distances, and the two-H hat path's field input with a distance
+# per plane and a caller's mask: the plan's mask times a seeded field in
+# [0.5, 1], computed on the card)
 MODES = {
-    "backward": (True, 1, False, False),
-    "stack": (False, 3, False, False),
-    "from_spectrum": (False, 3, True, False),
-    "from_spectrum_per_plane": (False, 1, True, True),
+    "backward": (True, 1, False, False, False),
+    "stack": (False, 3, False, False, False),
+    "from_spectrum": (False, 3, True, False, False),
+    "from_spectrum_per_plane": (False, 1, True, True, False),
+    "field_per_plane_mask_override": (False, 1, False, True, True),
 }
 
 
 def _k1_case(device, rows, cols, pad, batch, mode, seed=0):
-    conj_h, num_d, from_spectrum, per_plane = MODES[mode]
+    conj_h, num_d, from_spectrum, per_plane, override = MODES[mode]
     optics = OpticsConfig(rows=rows, cols=cols, pad_size=pad, filter_radius_coefficient=0.45)
     plan = asm.make_plan(optics, distances=np.linspace(4e-4, 1e-3, 3 if per_plane else num_d),
                          device=device)
@@ -67,8 +71,13 @@ def _k1_case(device, rows, cols, pad, batch, mode, seed=0):
     amp = torch.from_numpy(rng.random(shape).astype(np.float32)).to(device)
     phs = torch.from_numpy((2 * np.pi * rng.random(shape)).astype(np.float32)).to(device)
     dists = plan.distances[torch.arange(batch, device=device) % 3] if per_plane else plan.distances
+    mask = None
+    if override:
+        field = rng.uniform(0.5, 1.0, tuple(plan.mask.shape)).astype(np.float32)
+        mask = plan.mask * torch.from_numpy(field).to(device)
     return asm.fused_args(plan, asm.field(amp, phs), dists, conj_h=conj_h,
-                          from_spectrum=from_spectrum, per_plane=per_plane, use_mask=not conj_h)
+                          from_spectrum=from_spectrum, per_plane=per_plane, use_mask=not conj_h,
+                          mask_override=mask)
 
 
 GRIDS = [
@@ -163,6 +172,17 @@ def test_train_step_on_card_matches_cpu(device):
     backward."""
     assert torch.backends.cudnn.allow_tf32  # torch's default, untouched
     card_check.check_train_step(card_check.train_step_card_vs_cpu(device))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("option", [dict(two_h_hat=True), dict(critic_batching="separate"),
+                                    dict(critic_batching="full")],
+                         ids=["two_h_hat", "separate", "full"])
+def test_train_step_option_on_card_matches_cpu(device, option, dtype):
+    """The two-H hat path (K1 and K2 on field input, a distance per plane
+    and the product mask; no K3) and the separate and full critic
+    batchings, card against CPU at the same bounds."""
+    card_check.check_train_step(card_check.train_step_card_vs_cpu(device, dtype=dtype, **option))
 
 
 # (B, H, W, Cin, Cout): tile-aligned; H and W not multiples of the 8 x 32

@@ -92,19 +92,24 @@ def _planes_inputs(seed, p, rows, cols, num_d):
     return fr, fi, wl2, dists
 
 
-# (conj_h, from_spectrum, per_plane, num_d, use_mask): the two inference
-# modes, the eval step's from_spectrum stack and the train step's random
-# distances (from_spectrum + per_plane)
+# (conj_h, from_spectrum, per_plane, num_d, mask): the two inference
+# modes, the eval step's from_spectrum stack, the train step's random
+# distances (from_spectrum + per_plane) and the two-H hat path's (field
+# input + per_plane, with a caller's mask in place of the plan's).  mask:
+# None, "plan", or "override": the plan's mask times a seeded field in
+# [0.5, 1], a product mask as the hat path's is, not symmetric, so that a
+# mask read at the wrong (row, column) shows
 PLANE_MODES = {
-    "backward_d1_nomask": (True, False, False, 1, False),
-    "forward_d3_mask": (False, False, False, 3, True),
-    "from_spectrum_d3_mask": (False, True, False, 3, True),
-    "from_spectrum_per_plane_mask": (False, True, True, 1, True),
+    "backward_d1_nomask": (True, False, False, 1, None),
+    "forward_d3_mask": (False, False, False, 3, "plan"),
+    "from_spectrum_d3_mask": (False, True, False, 3, "plan"),
+    "from_spectrum_per_plane_mask": (False, True, True, 1, "plan"),
+    "field_per_plane_mask_override": (False, False, True, 1, "override"),
 }
 
 
 def _mode_inputs(mode, seed=3):
-    conj_h, from_spectrum, per_plane, num_d, use_mask = PLANE_MODES[mode]
+    conj_h, from_spectrum, per_plane, num_d, mask_kind = PLANE_MODES[mode]
     rows, cols, pad = 24, 32, 4
     optics = JaxOptics(rows=rows, cols=cols, pad_size=pad, filter_radius_coefficient=0.45)
     rp, cp = optics.padded_rows, optics.padded_cols
@@ -112,7 +117,9 @@ def _mode_inputs(mode, seed=3):
     fr, fi, wl2, _ = _planes_inputs(seed, 6, *shape, 1)
     n_dists = 6 if per_plane else num_d
     dists = np.linspace(4e-4, 1e-3, n_dists).astype(np.float32)[:, None]
-    mask = np.asarray(jasm.make_plan(optics).mask) if use_mask else None
+    mask = None if mask_kind is None else np.asarray(jasm.make_plan(optics).mask)
+    if mask_kind == "override":
+        mask = (mask * np.random.default_rng(seed + 10).uniform(0.5, 1.0, (rp, cp))).astype(np.float32)
     cfg = (PITCH, conj_h, from_spectrum, per_plane, num_d, rp, cp, (pad, rows, optics.pad_cols, cols))
     return fr, fi, wl2, dists, mask, cfg
 

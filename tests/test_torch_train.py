@@ -223,14 +223,15 @@ def _port_state(c):
 LOSS_CFG = dict(perceptual_loss_weight=0.1, discriminator_loss_weight=0.1, perceptual="none")  # VGG: its own tests above
 
 
-def test_train_step_matches_jax(carried_state):
-    """One GAN step (ratio 2, pair batching, VGG on carried weights): the
-    metrics, the G and D gradients (read back from SGD updates) and both
-    nets' batch_stats."""
-    c = carried_state
+def step_against_jax(c, **options):
+    """One GAN step (ratio 2, VGG on carried weights) with
+    ``build_train_step``'s ``options`` in both packages, from the carried
+    state ``c``: the metrics, the G and D gradients (read back from SGD
+    updates) and both nets' batch_stats.  The JAX update, carried back with
+    ``convert``, names exactly the port's state_dict entries."""
     jstep = jsteps.build_train_step(
         c["jgen"], c["jcritic"], *c["tx"], JaxLossConfig(**LOSS_CFG), use_gan=True,
-        discriminator_train_ratio=RATIO, discriminator_lambda=10.0)
+        discriminator_train_ratio=RATIO, discriminator_lambda=10.0, **options)
     jstate = jax.tree_util.tree_map(jnp.copy, c["jstate"])  # the step donates its state
     jnew, jm = jstep(jstate, tuple(map(jnp.asarray, c["batch"])), c["jplan"], c["jmulti"])
 
@@ -240,7 +241,7 @@ def test_train_step_matches_jax(carried_state):
     state = _port_state(c)
     old_g = {k: v.detach().clone() for k, v in state.generator.named_parameters()}
     old_d = {k: v.detach().clone() for k, v in state.discriminator.named_parameters()}
-    step = steps.build_train_step(LossConfig(**LOSS_CFG), True, RATIO, 10.0)
+    step = steps.build_train_step(LossConfig(**LOSS_CFG), True, RATIO, 10.0, **options)
     batch = tuple(torch.from_numpy(a) for a in c["batch"])
     state, m = step(state, batch, plan, multi, idx=torch.from_numpy(c["idx"]),
                     alphas=torch.from_numpy(c["alphas"]))
@@ -257,12 +258,18 @@ def test_train_step_matches_jax(carried_state):
         jdelta = conv({"params": jax.tree_util.tree_map(
             lambda a, b: (np.asarray(a) - np.asarray(b)) / lr, jold, jnew_p),
             "batch_stats": c["vg" if net is state.generator else "vd"]["batch_stats"]})
+        assert set(jdelta) == set(net.state_dict())
         scale = max(float(jdelta[k].abs().max()) for k, _ in net.named_parameters())
         for k, p in net.named_parameters():
             got = (old[k] - p.detach()) / lr
             assert float((got - jdelta[k]).abs().max()) <= 1e-2 * scale, k
     assert_stats_close(state.generator, jnew.batch_stats_G, rtol=1e-4, atol=1e-5)
     assert_stats_close(state.discriminator, jnew.batch_stats_D, rtol=1e-4, atol=1e-5)
+
+
+def test_train_step_matches_jax(carried_state):
+    """One GAN step with pair batching, the composed reconstruction."""
+    step_against_jax(carried_state)
 
 
 def test_eval_step_matches_jax(carried_state):
