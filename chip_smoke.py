@@ -17,7 +17,9 @@ configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
   3. each kernel (K1 in its inference and training modes, the two-H hat
      path's included, K2, K3) against its plain PyTorch version at the
      paths' shapes, with its time, the plain version's, a library yardstick
-     and the card's lower bound for the same work;
+     and the card's lower bound for the same work; K1's row pass alone
+     against the bound of its own work (``kernel_bound_ms``), and each of
+     K3's one-axis passes in TB/s beside cuFFT's;
   4. inference through ``generate_poh.main`` on synthetic RGBD files, with
      the launch counters reset before and read after, then the batch-16
      POH rate;
@@ -102,7 +104,8 @@ def phase_kernels(card):
     import torch
 
     from learned_hologram_gan_tpu_torch.utils.cuda_measure import (
-        MAX_REL_TOL, P999_REL_TOL, cuda_ms, k1_bound_ms, relative_errors)
+        MAX_REL_TOL, P999_REL_TOL, bound_ms, cuda_ms, k1_bound_ms, k1_row_pass_work,
+        relative_errors)
 
     from learned_hologram_gan_tpu_torch.config import GeneratorConfig, OpticsConfig
     from learned_hologram_gan_tpu_torch.models import make_generator_plan
@@ -129,7 +132,8 @@ def phase_kernels(card):
         ("forward D=3 masked", recon_plan, asm.field(torch.ones_like(poh), poh),
          recon_plan.distances, False, True),
     ]
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, kernel_ms=0.0)
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, kernel_ms=0.0,
+                  kernel_bound_ms=0.0)
     max_abs = 0.0
     bound_kinds = []
     for name, plan, g, dists, conj_h, use_mask in calls:
@@ -168,12 +172,17 @@ def phase_kernels(card):
             kernel_ms=cuda_ms(lambda: spectral.row_pass(x, wl2, dvec, mask, kcfg)),
         )
         bound, kind = k1_bound_ms(fr.shape[0], ROWS, COLS, kcfg[5], kcfg[6],
-                                  int(dvec.shape[0]), mask is not None)
+                                  int(dvec.shape[0]), mask)
         t["bound_ms"] = bound
         bound_kinds.append(kind)
+        t["kernel_bound_ms"], kernel_kind = bound_ms(*k1_row_pass_work(
+            fr.shape[0], ROWS, kcfg[5], kcfg[6], int(dvec.shape[0]), mask, False))
         print(f"K1 {name}: wrapper {t['ms']:.3f} ms (row-pass kernel alone "
               f"{t['kernel_ms']:.3f} ms), plain {t['plain_ms']:.3f} ms, torch.fft chain "
               f"{t['library_ms']:.3f} ms, bound {bound:.3f} ms ({kind}) [{card}]", flush=True)
+        print(f"K1 {name}: row pass alone {t['kernel_ms']:.3f} ms against its own bound "
+              f"{t['kernel_bound_ms']:.3f} ms ({kernel_kind}), "
+              f"{100 * t['kernel_bound_ms'] / t['kernel_ms']:.1f} % of the bound [{card}]", flush=True)
         for k in totals:
             totals[k] += t[k]
         del x, h, hm
@@ -190,6 +199,7 @@ def phase_kernels(card):
         bound_by="operations" if "operations" in bound_kinds else "bytes",
         library_ms=totals["library_ms"],
         kernel_only_ms=totals["kernel_ms"],
+        kernel_bound_ms=totals["kernel_bound_ms"],
         shapes="one forward: (48 planes, D=1) + (48 planes, D=3), 384x384 in 1024x1024",
     )
 

@@ -1,5 +1,5 @@
-// Radix-2 FFT in shared memory, shared by K1/K2 (k1_asm_propagate.cu) and
-// K3 (k3_fft.cu).
+// Radix-2 FFT in shared memory, used by K2 (k1_asm_propagate.cu).  K1 and
+// K3 run on the register-resident core of fft_hopper.cuh.
 //
 // A block holds an (n, TC) row-major tile: TC independent lines of length n,
 // element k of line c at buf[k * TC + c].  fft_rows transforms every line

@@ -24,39 +24,53 @@
 // The FFT is linear, so the distance sum is taken in the spectrum: D forward
 // transforms and one inverse, not 2D.
 //
-// Design, for Hopper rather than the TPU's DFT-as-GEMM form:
-//   * One block owns plane p and TC neighbouring columns.  Its `rows`
-//     nonzero rows are read once into shared memory at padded rows
-//     r0..r0+rows-1; the zero padding never reaches device memory.
-//   * The rp-point FFTs along the rows run in shared memory (radix-2, in
-//     place, fft_radix2.cuh): rows are stored in bit-reversed order and come
-//     out in natural order.  K1's stage-1 spectrum stays in shared memory
-//     for all D distances; K2 accumulates its distance sum there.
-//   * H * mask is computed in registers; only the crop window [r0, r0+rows)
-//     is written (all rp rows for K2 in from_spectrum mode).
-//   * In from_spectrum mode K1 needs one (rp, TC) buffer, not two: it reads
-//     the spectrum rows straight from device memory (L2) per distance.
+// Design of K1, for Hopper rather than the TPU's DFT-as-GEMM form:
+//   * One block owns plane p and cpb neighbouring columns, interleaved
+//     across the lanes: each row is read and written as a segment of
+//     cpb * 8 bytes (64 at cpb = 8).  Only the `rows` nonzero rows are read
+//     (padded rows r0..r0+rows-1); the zero padding never reaches memory.
+//   * The rp-point FFTs along the rows run in registers on the core of
+//     fft_hopper.cuh: at rp = 1024 each thread holds 32 values of its
+//     column and does two 32-point DFTs with one exchange through shared
+//     memory (interleaved by column, padded free of bank conflicts).  The
+//     spectrum comes out in natural order, in the order the inverse
+//     transform takes its input: it is multiplied by the mask once, kept
+//     in shared memory (thread-private slots) across the distances, and
+//     multiplied by H, computed one value at a time, for each of them
+//     (where the masked spectrum is not 0).  The inverse transform is
+//     conj(F(conj(.))), folded into that multiply and the store, and only
+//     the crop window [r0, r0+rows) is written.
+// Design of K2 (unchanged): one block owns plane p and TC neighbouring
+// columns; the rp-point FFTs run in shared memory (radix-2, in place,
+// fft_radix2.cuh): rows are stored in bit-reversed order and come out in
+// natural order, and the distance sum accumulates in shared memory.
 //
 // H repeats the float32 operation order of spectral.py:_h_tile and
 // asm.py:_w_grid exactly: fx = k * f32(1/(rp*pitch)), fx*fx + fy*fy (no FMA
 // contraction), clamp, IEEE sqrt, theta = (f32(+-2pi) * z) * w, then the
 // full-precision sincosf.  theta reaches ~1.4e4 rad, so this file must not
 // be built with --use_fast_math.  K2 negates the f32 sign, which negates
-// theta exactly: its H is the exact conjugate of K1's.
+// theta exactly: its H is the exact conjugate of K1's.  K2 multiplies H by
+// the mask; K1 multiplies the spectrum by it, once for all distances, and
+// skips H where that product is 0: the same result bit for bit with the
+// plans' 0/1 masks, one rounding apart with a caller's fractional mask.
 //
 // Bound at the main path's inference shapes (P = 48 planes, rows = 384,
 // rp = cp = 1024; one call with D = 1, one with D = 3): each call reads its
 // (P, rows, cp) complex64 input once (151 MB) and writes D row-cropped
 // outputs, ~0.91 GB in all or ~0.27 ms at 3.35 TB/s; its arithmetic (the
 // row FFTs at 5 n log2 n, ~14 FLOP of H and complex multiply per element
-// and distance) is ~1.8e10 FLOP or ~0.27 ms at 67 TFLOP/s f32.  In training
-// (from_spectrum, P = 24 planes, D = 1 per plane) the row pass reads the
-// full (P, rp, cp) spectrum, 201 MB, and writes 75 MB: it is bound by
-// bytes.  Everything between the read and the write stays in shared memory.
+// and distance where the mask is not 0) is ~1.7e10 FLOP or ~0.25 ms at 67
+// TFLOP/s f32.  In training (from_spectrum, P = 24 planes, D = 1 per
+// plane) the row pass needs the spectrum only inside the mask, 128 of its
+// 201 MB at filter 0.45, and writes 75 MB: it is bound by bytes.  Everything between the read and the write stays on chip.  K1's
+// instructions outrun both counts: the full-precision sincosf of H is ~30
+// an element and distance, and the DFTs' adds do not fuse into FMAs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fft_hopper.cuh"
 #include "fft_radix2.cuh"
 
 namespace {
@@ -65,16 +79,21 @@ using lhg::bit_reverse;
 using lhg::cmul;
 using lhg::fft_rows;
 using lhg::log2_int;
+using lhg::hopper::FftPlan;
+using lhg::hopper::LineSync;
+using lhg::hopper::fft_line;
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 512;         // K2's block
+constexpr int kRowPassThreads = 512;  // K1's largest block (cpb * T)
 
-// H * mask at padded row k (fx) and padded column col (fy), for the plane's
+// H at padded row k (fx) and padded column col (fy), for the plane's
 // 1/lambda^2 `wl2_p` and sz = f32(+-2pi) * z.
-__device__ __forceinline__ float2 h_masked(int k, int col, int rp, int cp,
-                                           float wl2_p, float sz,
-                                           float inv_rp_pitch,
-                                           float inv_cp_pitch,
-                                           const float* __restrict__ mask) {
+__device__ __forceinline__ float2 h_transfer(int k, int col, int rp, int cp, float wl2_p,
+                                             float sz, float inv_rp_pitch,
+                                             float inv_cp_pitch) {
+#ifdef LHG_ABLATE_H
+  return make_float2(1.0f, 0.0f);  // a measurement build of fft_ablation.py: H = 1
+#endif
   const int kr = k >= (rp + 1) / 2 ? k - rp : k;
   const int kc = col >= (cp + 1) / 2 ? col - cp : col;
   const float fx = __fmul_rn(static_cast<float>(kr), inv_rp_pitch);
@@ -84,77 +103,113 @@ __device__ __forceinline__ float2 h_masked(int k, int col, int rp, int cp,
   const float theta = __fmul_rn(sz, w);
   float hs, hc;
   sincosf(theta, &hs, &hc);
-  if (mask != nullptr) {
-    const float m = mask[static_cast<size_t>(k) * cp + col];
-    hc = __fmul_rn(hc, m);
-    hs = __fmul_rn(hs, m);
-  }
   return make_float2(hc, hs);
 }
 
-template <int TC>
-__global__ void __launch_bounds__(kThreads)
+// H * mask (no mask: H).
+__device__ __forceinline__ float2 h_masked(int k, int col, int rp, int cp,
+                                           float wl2_p, float sz,
+                                           float inv_rp_pitch,
+                                           float inv_cp_pitch,
+                                           const float* __restrict__ mask) {
+  float2 h = h_transfer(k, col, rp, cp, wl2_p, sz, inv_rp_pitch, inv_cp_pitch);
+  if (mask != nullptr) {
+    const float m = mask[static_cast<size_t>(k) * cp + col];
+    h = make_float2(__fmul_rn(h.x, m), __fmul_rn(h.y, m));
+  }
+  return h;
+}
+
+// K1.  Thread t works on column col0 + t % cpb and holds, as thread
+// j = t / cpb of that column's line, padded rows j + T c in v[c].  Its
+// slot c in a thread-private array of shared memory is [c * blockDim + t]:
+// `spec` (the spectrum, when D > 1) and `work` (the spectrum times H, in
+// the exchange's space, which no FFT is using at the time).
+template <int E>
+__global__ void __launch_bounds__(kRowPassThreads)
 asm_row_pass_kernel(const float2* __restrict__ x,      // (P, rows|rp, cp)
                     float2* __restrict__ out,          // (P, D, rows, cp)
                     const float* __restrict__ wl2,     // (P,)
                     const float* __restrict__ dists,   // (D,) or (P,)
                     const float* __restrict__ mask,    // (rp, cp) or null
-                    const float2* __restrict__ twiddle,  // (rp / 2,)
+                    const float2* __restrict__ twiddle,  // the plan's tables
+                    const __grid_constant__ FftPlan plan, int cpb,
                     int rows, int cp, int rp, int r0, int num_d,
                     int from_spectrum, int per_plane, float inv_rp_pitch,
                     float inv_cp_pitch, float two_pi_signed) {
   extern __shared__ float2 smem[];
-  float2* tw = smem;                   // (rp / 2,) twiddles
-  float2* work = smem + rp / 2;        // (rp, TC) per-distance buffer
-  float2* spec = work + rp * TC;       // (rp, TC) stage-1 spectrum (field mode)
-
+  const int T = plan.threads;
+  const int t = threadIdx.x;
+  const int nt = blockDim.x;
+  const int l = t % cpb;
+  const int j = t / cpb;
   const int p = blockIdx.y;
-  const int col0 = blockIdx.x * TC;
-  const int log2rp = log2_int(rp);
-  const int shift = 32 - log2rp;
+  const int col = blockIdx.x * cpb + l;
+  const bool valid = col < cp;
+  const int colc = valid ? col : cp - 1;  // a column to compute H at; not stored
+  float2* work = smem;  // the exchange's space, at least rp values a column
+  const int work_len = plan.buffer > rp ? plan.buffer : rp;
+  float2* spec = num_d > 1 ? smem + static_cast<size_t>(cpb) * work_len : work;
+  const LineSync sync{false};
 
-  for (int i = threadIdx.x; i < rp / 2; i += blockDim.x) tw[i] = twiddle[i];
-  if (!from_spectrum) {
-    for (int i = threadIdx.x; i < rp * TC; i += blockDim.x) {
-      spec[i] = make_float2(0.f, 0.f);
+  float2 v[E];
+  if (from_spectrum) {
+    const float2* xs = x + static_cast<size_t>(p) * rp * cp + colc;
+#pragma unroll
+    for (int c = 0; c < E; ++c) {
+      const int k = j + c * T;
+      v[c] = valid ? xs[static_cast<size_t>(k) * cp] : make_float2(0.f, 0.f);
     }
-    __syncthreads();
-    const float2* xp = x + static_cast<size_t>(p) * rows * cp + col0;
-    for (int i = threadIdx.x; i < rows * TC; i += blockDim.x) {
-      const int r = i / TC;
-      const int c = i % TC;
-      spec[bit_reverse(r0 + r, shift) * TC + c] = xp[static_cast<size_t>(r) * cp + c];
-    }
-    __syncthreads();
-    fft_rows<TC>(spec, tw, rp, log2rp, false);
   } else {
-    __syncthreads();
+    const float2* xp = x + static_cast<size_t>(p) * rows * cp + colc;
+#pragma unroll
+    for (int c = 0; c < E; ++c) {
+      const int r = j + c * T - r0;
+      v[c] = (valid && r >= 0 && r < rows) ? xp[static_cast<size_t>(r) * cp]
+                                           : make_float2(0.f, 0.f);
+    }
+    fft_line<E>(v, plan, j, smem + l, cpb, twiddle, sync);
+  }
+  __syncthreads();  // the forward transform's exchange reads are done
+  // the spectrum times the mask, once for all distances
+#pragma unroll
+  for (int c = 0; c < E; ++c) {
+    const float m = mask != nullptr ? mask[static_cast<size_t>(j + c * T) * cp + colc] : 1.0f;
+    spec[c * nt + t] = mask != nullptr ? make_float2(__fmul_rn(v[c].x, m), __fmul_rn(v[c].y, m))
+                                       : v[c];
   }
 
   const float wl2_p = wl2[p];
   const float scale = 1.0f / static_cast<float>(rp);
-  const float2* xs = from_spectrum ? x + static_cast<size_t>(p) * rp * cp + col0 : x;
   for (int d = 0; d < num_d; ++d) {
+    if (d > 0) __syncthreads();  // the last inverse transform's exchange reads are done
     const float sz = __fmul_rn(two_pi_signed, per_plane ? dists[p] : dists[d]);
-    for (int i = threadIdx.x; i < rp * TC; i += blockDim.x) {
-      const int k = i / TC;
-      const int c = i % TC;
-      const float2 s = from_spectrum ? xs[static_cast<size_t>(k) * cp + c] : spec[i];
-      const float2 h = h_masked(k, col0 + c, rp, cp, wl2_p, sz, inv_rp_pitch,
-                                inv_cp_pitch, mask);
-      work[bit_reverse(k, shift) * TC + c] = cmul(s, h);
+    // (S * mask) * H, conjugated for the inverse transform, one value at a
+    // time (few registers); H is skipped where S * mask is 0
+#pragma unroll 2
+    for (int c = 0; c < E; ++c) {
+      const float2 s = spec[c * nt + t];
+      float2 z = make_float2(0.f, 0.f);
+      if (s.x != 0.0f || s.y != 0.0f) {
+        const float2 sh =
+            cmul(s, h_transfer(j + c * T, colc, rp, cp, wl2_p, sz, inv_rp_pitch, inv_cp_pitch));
+        z = make_float2(sh.x, -sh.y);
+      }
+      work[c * nt + t] = z;
     }
-    __syncthreads();
-    fft_rows<TC>(work, tw, rp, log2rp, true);
-
-    float2* op = out + (static_cast<size_t>(p) * num_d + d) * rows * cp + col0;
-    for (int i = threadIdx.x; i < rows * TC; i += blockDim.x) {
-      const int r = i / TC;
-      const int c = i % TC;
-      const float2 v = work[(r0 + r) * TC + c];
-      op[static_cast<size_t>(r) * cp + c] = make_float2(v.x * scale, v.y * scale);
+#pragma unroll
+    for (int c = 0; c < E; ++c) v[c] = work[c * nt + t];
+    fft_line<E>(v, plan, j, smem + l, cpb, twiddle, sync);
+    if (valid) {
+      float2* op = out + (static_cast<size_t>(p) * num_d + d) * rows * cp + col;
+#pragma unroll
+      for (int c = 0; c < E; ++c) {
+        const int r = j + c * T - r0;
+        if (r >= 0 && r < rows) {
+          op[static_cast<size_t>(r) * cp] = make_float2(v[c].x * scale, -v[c].y * scale);
+        }
+      }
     }
-    __syncthreads();
   }
 }
 
@@ -249,39 +304,40 @@ struct Args {
   float inv_rp_pitch, inv_cp_pitch, two_pi_signed;
 };
 
-template <int TC, bool kAdjoint>
-int launch(const Args& a, cudaStream_t stream) {
-  const int buffers = (kAdjoint || !a.from_spectrum) ? 2 : 1;
-  const size_t smem =
-      (static_cast<size_t>(buffers) * a.rp * TC + a.rp / 2) * sizeof(float2);
-  auto kernel = kAdjoint ? asm_row_adjoint_kernel<TC> : asm_row_pass_kernel<TC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+bool valid_args(const Args& a) {
+  return a.rp >= 2 && (a.rp & (a.rp - 1)) == 0 && a.r0 >= 0 && a.rows + a.r0 <= a.rp &&
+         a.num_planes <= 65535 && (!a.per_plane || a.num_d == 1);
+}
+
+template <int TC>
+int launch_k2(const Args& a, cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(2) * a.rp * TC + a.rp / 2) * sizeof(float2);
+  cudaError_t err = cudaFuncSetAttribute(asm_row_adjoint_kernel<TC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(a.cp / TC, a.num_planes);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  asm_row_adjoint_kernel<TC><<<grid, kThreads, smem, stream>>>(
       a.in, a.out, a.wl2, a.dists, a.mask, a.twiddle, a.rows, a.cp, a.rp,
       a.r0, a.num_d, a.from_spectrum, a.per_plane, a.inv_rp_pitch,
       a.inv_cp_pitch, a.two_pi_signed);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kAdjoint>
-int dispatch(const Args& a, int tc, int device, void* stream) {
-  const int rp = a.rp;
-  if (rp < 2 || (rp & (rp - 1)) != 0 || a.rows + a.r0 > rp || a.cp % tc != 0 ||
-      a.num_planes > 65535 || (a.per_plane && a.num_d != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
+template <int E>
+int launch_k1(const Args& a, const FftPlan& plan, int cpb, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(cpb) *
+                      ((plan.buffer > a.rp ? plan.buffer : a.rp) + (a.num_d > 1 ? a.rp : 0)) * sizeof(float2);
+  cudaError_t err = cudaFuncSetAttribute(asm_row_pass_kernel<E>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tc) {
-    case 4: return launch<4, kAdjoint>(a, s);
-    case 2: return launch<2, kAdjoint>(a, s);
-    case 1: return launch<1, kAdjoint>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const dim3 grid((a.cp + cpb - 1) / cpb, a.num_planes);
+  asm_row_pass_kernel<E><<<grid, cpb * plan.threads, smem, stream>>>(
+      a.in, a.out, a.wl2, a.dists, a.mask, a.twiddle, plan, cpb, a.rows, a.cp, a.rp,
+      a.r0, a.num_d, a.from_spectrum, a.per_plane, a.inv_rp_pitch,
+      a.inv_cp_pitch, a.two_pi_signed);
+  return static_cast<int>(cudaGetLastError());
 }
 
 Args make_args(const void* in, void* out, const void* wl2, const void* dists,
@@ -300,23 +356,41 @@ Args make_args(const void* in, void* out, const void* wl2, const void* dists,
 
 // Launches K1 on `stream`.  Returns a cudaError_t value: 0 on success.
 // x is (P, rows, cp), or (P, rp, cp) when from_spectrum; out is
-// (P, num_d, rows, cp).  The Python wrapper checks devices, shapes, types and
-// contiguity; this checks rp a power of two, rows + r0 <= rp, cp % tc == 0.
+// (P, num_d, rows, cp).  plan_ints (host memory) is fft_plan.py:plan_ints
+// for rp and twiddle its tables on the device; cpb columns go to a block.
+// The Python wrapper checks devices, shapes, types and contiguity, and picks
+// cpb; this checks the plan against rp, rows + r0 <= rp and the block size.
 extern "C" int k1_asm_row_pass(const void* x, void* out, const void* wl2,
                                const void* dists, const void* mask,
-                               const void* twiddle, int num_planes, int rows,
-                               int cp, int rp, int r0, int num_d, int tc,
-                               int from_spectrum, int per_plane,
+                               const void* twiddle, const int* plan_ints,
+                               int num_planes, int rows, int cp, int rp, int r0,
+                               int num_d, int cpb, int from_spectrum, int per_plane,
                                float inv_rp_pitch, float inv_cp_pitch,
                                float two_pi_signed, int device, void* stream) {
   const Args a = make_args(x, out, wl2, dists, mask, twiddle, num_planes, rows,
                            cp, rp, r0, num_d, from_spectrum, per_plane,
                            inv_rp_pitch, inv_cp_pitch, two_pi_signed);
-  return dispatch<false>(a, tc, device, stream);
+  const FftPlan plan = lhg::hopper::plan_from_ints(plan_ints);
+  if (!valid_args(a) || plan.n != rp || plan.elems * plan.threads != rp || cpb < 1 ||
+      (cpb & (cpb - 1)) != 0 || cpb * plan.threads > kRowPassThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (plan.elems) {
+    case 32: return launch_k1<32>(a, plan, cpb, s);
+    case 16: return launch_k1<16>(a, plan, cpb, s);
+    case 8: return launch_k1<8>(a, plan, cpb, s);
+    case 4: return launch_k1<4>(a, plan, cpb, s);
+    case 2: return launch_k1<2>(a, plan, cpb, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Launches K2 on `stream`: g is (P, num_d, rows, cp); out is (P, rows, cp),
-// or (P, rp, cp) when from_spectrum.  two_pi_signed is the forward's sign.
+// or (P, rp, cp) when from_spectrum.  two_pi_signed is the forward's sign;
+// twiddle is fft_radix2.cuh's (rp / 2,) table, tc the columns of a block.
 extern "C" int k2_asm_row_adjoint(const void* g, void* out, const void* wl2,
                                   const void* dists, const void* mask,
                                   const void* twiddle, int num_planes, int rows,
@@ -327,7 +401,16 @@ extern "C" int k2_asm_row_adjoint(const void* g, void* out, const void* wl2,
   const Args a = make_args(g, out, wl2, dists, mask, twiddle, num_planes, rows,
                            cp, rp, r0, num_d, from_spectrum, per_plane,
                            inv_rp_pitch, inv_cp_pitch, two_pi_signed);
-  return dispatch<true>(a, tc, device, stream);
+  if (!valid_args(a) || a.cp % tc != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tc) {
+    case 4: return launch_k2<4>(a, s);
+    case 2: return launch_k2<2>(a, s);
+    case 1: return launch_k2<1>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* k1_error_string(int code) {

@@ -6,6 +6,9 @@ nvcc alone (no PyTorch headers, so a build takes seconds) into
 headers (``csrc/*.cuh``) and the flags: a second run with the same sources
 loads the existing library.  The build happens at first use, never at
 import; :func:`build_libraries` starts one nvcc per source at once.
+``defines`` adds preprocessor macros (and so a library of another hash):
+the wrappers load the plain build; only ``fft_ablation.py`` asks for
+others.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -39,6 +42,7 @@ class BuildResult:
     seconds: float
     cached: bool
     log: str  # nvcc's output, including ptxas' register / shared-memory report
+    # (kept beside the library as <name>-<hash>.log, and read back when cached)
 
 
 def find_nvcc() -> str:
@@ -59,31 +63,36 @@ def find_nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def _flags(defines: Sequence[str]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _target(name: str, defines: Sequence[str]) -> Path:
     source = CSRC_DIR / f"{name}.cu"
     blob = source.read_bytes()
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         blob += b"\0" + header.name.encode() + b"\0" + header.read_bytes()
-    digest = hashlib.sha256(blob + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(blob + "\0".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build_libraries(names: Sequence[str]) -> Dict[str, BuildResult]:
+def build_libraries(names: Sequence[str], defines: Sequence[str] = ()) -> Dict[str, BuildResult]:
     """Compile each ``csrc/<name>.cu`` whose library of the same hash does
     not exist yet, one nvcc process per source, all started together."""
     results: Dict[str, BuildResult] = {}
     running = []
     for name in names:
-        target = _target(name)
+        target = _target(name, defines)
         if target.exists():
-            results[name] = BuildResult(target, 0.0, True, "")
+            log = target.with_suffix(".log")
+            results[name] = BuildResult(target, 0.0, True, log.read_text() if log.exists() else "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         source = CSRC_DIR / f"{name}.cu"
         proc = subprocess.Popen(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+            [find_nvcc(), *_flags(defines), "-o", tmp, str(source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         running.append((name, source, target, tmp, proc, time.perf_counter()))
@@ -94,6 +103,7 @@ def build_libraries(names: Sequence[str]) -> Dict[str, BuildResult]:
             if proc.returncode != 0:
                 failures.append(f"nvcc failed on {source} (exit {proc.returncode}):\n{log}")
                 continue
+            target.with_suffix(".log").write_text(log)
             os.replace(tmp, target)
             results[name] = BuildResult(target, time.perf_counter() - start, False, log)
     finally:
@@ -108,12 +118,12 @@ def build_libraries(names: Sequence[str]) -> Dict[str, BuildResult]:
     return results
 
 
-def build_library(name: str) -> BuildResult:
+def build_library(name: str, defines: Sequence[str] = ()) -> BuildResult:
     """Compile ``csrc/<name>.cu`` unless a library of the same hash exists."""
-    return build_libraries([name])[name]
+    return build_libraries([name], defines)[name]
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
+def load_library(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
-    return ctypes.CDLL(str(build_library(name).path))
+    return ctypes.CDLL(str(build_library(name, defines).path))

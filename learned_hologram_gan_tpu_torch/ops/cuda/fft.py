@@ -4,7 +4,8 @@ Counterpart of ``learned_hologram_gan_tpu/ops/pallas/spectral.py:_dft_pass``
 (the ``pl.pallas_call`` at spectral.py:320) as ``fft2_pallas`` /
 ``ifft2_pallas`` (:362-391) use it: a 2-D transform over the last two axes
 is two one-axis passes (axis -1, then axis -2), each a launch of
-``csrc/k3_fft.cu`` on a CUDA tensor.
+``csrc/k3_fft.cu`` on a CUDA tensor, the register-resident FFT of
+``csrc/fft_hopper.cuh`` with the plan of :mod:`.fft_plan`.
 
 :func:`fft2` and :func:`ifft2` are ``torch.autograd.Function``s on complex
 tensors with torch's (conjugate Wirtinger) convention: the backward of the
@@ -21,33 +22,30 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
+from . import fft_plan
+
 KERNEL_NAME = "k3_fft"
-# dynamic shared memory a Hopper block may use (227 KB)
-_SMEM_LIMIT = 232448
 
 
-def _smem_bytes(n: int, tl: int) -> int:
-    return (n * tl + n // 2) * 8
-
-
-def _pick_tl(n: int, lines: int) -> Optional[int]:
-    # the most lines per block that divide `lines` and fit: at n = 1024 an
-    # 8-line block takes 68 KB, three to an SM
-    for tl in (8, 4, 2, 1):
-        if lines % tl == 0 and _smem_bytes(n, tl) <= _SMEM_LIMIT:
-            return tl
-    return None
+def _pick_lpb(plan: fft_plan.FftPlan, columns: bool) -> Optional[int]:
+    """Lines per block: along axis -1 blocks of 128 threads or one line;
+    along axis -2 at least 8 interleaved columns (64-byte row segments).
+    At n = 1024 that is 4 lines (34 KB) along axis -1 and 8 columns (68 KB)
+    along -2."""
+    return fft_plan.lines_per_block(plan, 8 if columns else 1, plan.buffer * 8)
 
 
 def supported_length(n: int) -> bool:
-    """True if K3 transforms lines of length ``n``: a power of two whose
-    single-line block fits in shared memory."""
-    return n >= 2 and n & (n - 1) == 0 and _smem_bytes(n, 1) <= _SMEM_LIMIT
+    """True if K3 transforms lines of length ``n``: a power of two from 2 to
+    16384, whose plan fits a block along either axis."""
+    if n < 2 or n & (n - 1) or n > fft_plan.MAX_LENGTH:
+        return False
+    plan = fft_plan.make_plan(n)
+    return _pick_lpb(plan, False) is not None and _pick_lpb(plan, True) is not None
 
 
 def supported(rows: int, cols: int) -> bool:
@@ -63,20 +61,13 @@ def fft_axis_reference(x: torch.Tensor, axis: int, inverse: bool, scale: float) 
 
 
 @functools.lru_cache(maxsize=None)
-def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """(n/2,) complex64 table of exp(2*pi*i*k/n), computed in float64."""
-    k = np.arange(n // 2, dtype=np.float64)
-    return torch.from_numpy(np.exp(2j * np.pi * k / n).astype(np.complex64)).to(device)
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
+def _kernel_fn(defines: Tuple[str, ...] = ()):
     from .build import load_library
 
-    lib = load_library(KERNEL_NAME)
+    lib = load_library(KERNEL_NAME, defines)
     fn = lib.k3_fft_axis
     fn.argtypes = (
-        [ctypes.c_void_p] * 3
+        [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
@@ -99,7 +90,7 @@ def fft_axis(x: torch.Tensor, axis: int, inverse: bool, scale: float) -> torch.T
     if axis not in (-1, -2):
         raise ValueError(f"K3 transforms axis -1 or -2, not {axis}")
     rows, cols = x.shape[-2], x.shape[-1]
-    n, lines = (cols, rows) if axis == -1 else (rows, cols)
+    n = cols if axis == -1 else rows
     if not supported_length(n):
         raise ValueError(f"K3 does not support length {n}")
     planes = x.numel() // (rows * cols)
@@ -107,10 +98,11 @@ def fft_axis(x: torch.Tensor, axis: int, inverse: bool, scale: float) -> torch.T
         raise ValueError(f"K3 takes at most 65535 planes, got {planes}")
     x = x.contiguous()
     y = torch.empty_like(x)
+    plan, ints, tw = fft_plan.device_plan(n, x.device)
     fn, err_str = _kernel_fn()
     code = fn(
-        x.data_ptr(), y.data_ptr(), _twiddles(n, x.device).data_ptr(),
-        planes, rows, cols, int(axis == -1), _pick_tl(n, lines), int(inverse),
+        x.data_ptr(), y.data_ptr(), tw.data_ptr(), ints.ctypes.data,
+        planes, rows, cols, int(axis == -1), _pick_lpb(plan, axis == -2), int(inverse),
         float(scale),
         x.device.index if x.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(x.device).cuda_stream,

@@ -37,8 +37,10 @@ from .utils.cuda_measure import (
     check_rel,
     cuda_ms,
     fft_flops,
+    k1_row_pass_work,
     k1_work,
     profile_kernels,
+    spectral_support,
 )
 
 ROWS = COLS = 384
@@ -55,10 +57,10 @@ class _Entry:
     def __init__(self, name, source, replaces, shapes):
         self.fields = dict(name=name, route="cuda", source=source, replaces=replaces, shapes=shapes)
         self.t = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-        self.kernel_ms, self.err, self.kinds = 0.0, 0.0, []
+        self.kernel_ms, self.kernel_bound_ms, self.err, self.kinds = 0.0, 0.0, 0.0, []
 
     def add(self, name, card, err, wrapper, plain, library, kernel, nbytes, flops,
-            peak_flop_per_s=PEAK_F32_FLOP_PER_S, iters=5):
+            peak_flop_per_s=PEAK_F32_FLOP_PER_S, iters=5, kernel_work=None):
         t = dict(ms=cuda_ms(wrapper, iters=iters), plain_ms=cuda_ms(plain, iters=3, warmup=1),
                  library_ms=cuda_ms(library, iters=iters))
         kernel_ms = cuda_ms(kernel, iters=iters) if kernel is not None else None
@@ -66,6 +68,12 @@ class _Entry:
         alone = "" if kernel_ms is None else f" (kernel alone {kernel_ms:.3f} ms)"
         print(f"{name}: wrapper {t['ms']:.3f} ms{alone}, plain {t['plain_ms']:.3f} ms, library "
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({kind}) [{card}]", flush=True)
+        if kernel_work is not None:
+            kernel_bound, kernel_kind = bound_ms(*kernel_work, peak_flop_per_s)
+            print(f"{name}: kernel alone {kernel_ms:.3f} ms against its own bound "
+                  f"{kernel_bound:.3f} ms ({kernel_kind}), {100 * kernel_bound / kernel_ms:.1f} % "
+                  f"of the bound [{card}]", flush=True)
+            self.kernel_bound_ms += kernel_bound
         for k in t:
             self.t[k] += t[k]
         self.kernel_ms += kernel_ms or 0.0
@@ -76,6 +84,8 @@ class _Entry:
         out = dict(self.fields, max_abs_err=self.err, bound_by=max(self.kinds)[1], **self.t)
         if self.kernel_ms:
             out["kernel_only_ms"] = self.kernel_ms
+        if self.kernel_bound_ms:
+            out["kernel_bound_ms"] = self.kernel_bound_ms
         return out
 
 
@@ -150,11 +160,14 @@ def training_kernels(card):
         err = check_rel(name, *spectral.propagate_planes(*args),
                         *spectral.propagate_planes_reference(*args))
         x = torch.complex(fr, fi)
+        # the spectrum is read, and H applied, on the mask's support only
+        support = spectral_support(mask, rp, cp)
         k1.add(name, card, err, lambda: spectral.propagate_planes(*args),
                lambda: spectral.propagate_planes_reference(*args), library,
                lambda: spectral.row_pass(x, wl2, dvec, mask, kcfg),
-               2 * p * rp * cp * 4 + rp * cp * 4 + 2 * p * num_d * ROWS * COLS * 4,
-               fft_flops(rp, p * num_d * cp) + fft_flops(cp, p * num_d * ROWS) + p * num_d * rp * cp * 16)
+               2 * p * support * 4 + rp * cp * 4 + 2 * p * num_d * ROWS * COLS * 4,
+               fft_flops(rp, p * num_d * cp) + fft_flops(cp, p * num_d * ROWS) + p * num_d * support * 16,
+               kernel_work=k1_row_pass_work(p, ROWS, rp, cp, num_d, mask, True))
         del x
 
     # K2: one step's two backward calls, through the random-distance
@@ -172,12 +185,14 @@ def training_kernels(card):
     for name, args, library in calls:
         p, num_d, from_spectrum = args[0].shape[0], args[-1][4], args[-1][2]
         out_rows, out_cols = (rp, cp) if from_spectrum else (ROWS, COLS)
-        flops = fft_flops(cp, p * num_d * ROWS) + fft_flops(rp, p * num_d * cp) + p * num_d * rp * cp * 16
+        mask = args[4]
+        flops = (fft_flops(cp, p * num_d * ROWS) + fft_flops(rp, p * num_d * cp)
+                 + p * num_d * spectral_support(mask, rp, cp) * (16 if mask is not None else 14))
         if not from_spectrum:
             flops += fft_flops(rp, p * cp) + fft_flops(cp, p * ROWS)
         _add_k2(k2, card, rng, name, args, library,
                 2 * p * num_d * ROWS * COLS * 4 + 2 * p * out_rows * out_cols * 4
-                + (rp * cp * 4 if args[4] is not None else 0), flops)
+                + (rp * cp * 4 if mask is not None else 0), flops)
     del spec, hm, per_plane
 
     # K3: one step's 2-D transforms of (12, 1024, 1024): the hat and target
@@ -203,6 +218,25 @@ def training_kernels(card):
            lambda: (fft.fft2(x), fft.fft2(x), fft._transform2(x, True, 1.0)), plain,
            lambda: (torch.fft.fft2(x), torch.fft.fft2(x), torch.fft.ifft2(x, norm="forward")), None,
            3 * 2 * x.numel() * 8, 3 * (fft_flops(cp, x.shape[0] * rp) + fft_flops(rp, x.shape[0] * cp)))
+    # each one-axis pass alone, in TB/s of its own bytes (read + write),
+    # beside cuFFT's same pass and a device copy of the same bytes
+    nbytes = 2 * x.numel() * 8
+    y = torch.empty_like(x)
+    copy_ms = cuda_ms(lambda: y.copy_(x), iters=10)
+    print(f"K3: a device copy of (12, 1024, 1024) complex64 {copy_ms:.4f} ms, "
+          f"{nbytes / copy_ms / 1e9:.2f} TB/s [{card}]", flush=True)
+    k3.fields["passes"] = dict(copy=dict(ms=copy_ms, tb_s=nbytes / copy_ms / 1e9))
+    del y
+    for axis in (-1, -2):
+        for inverse in (False, True):
+            label = f"axis {axis} {'inverse' if inverse else 'forward'}"
+            lib = torch.fft.ifft if inverse else torch.fft.fft
+            ms = cuda_ms(lambda: fft.fft_axis(x, axis, inverse, 1.0), iters=10)
+            lib_ms = cuda_ms(lambda: lib(x, dim=axis, norm="forward" if inverse else "backward"), iters=10)
+            k3.fields["passes"][label] = dict(ms=ms, tb_s=nbytes / ms / 1e9, cufft_ms=lib_ms,
+                                              cufft_tb_s=nbytes / lib_ms / 1e9)
+            print(f"K3 pass {label} of (12, 1024, 1024): {ms:.4f} ms, {nbytes / ms / 1e9:.2f} TB/s; "
+                  f"cuFFT {lib_ms:.4f} ms, {nbytes / lib_ms / 1e9:.2f} TB/s [{card}]", flush=True)
     del x
     torch.cuda.empty_cache()
     return dict(k1_train=k1.json(), k2=k2.json(), k3=k3.json())
@@ -245,11 +279,12 @@ def two_h_kernels(card):
                         *spectral.propagate_planes_reference(*args))
         hm = asm._transfer_function(plan.w_grid, dists) * mask  # (B, C, rp, cp), cached
         x = torch.fft.fft(torch.nn.functional.pad(torch.complex(fr, fi), (PAD, PAD)), dim=-1)
-        work = k1_work(fr.shape[0], ROWS, COLS, rp, cp, 1, True)
+        work = k1_work(fr.shape[0], ROWS, COLS, rp, cp, 1, m)
         k1.add(f"K1 field+per_plane ({name})", card, err, lambda: spectral.propagate_planes(*args),
                lambda: spectral.propagate_planes_reference(*args),
                lambda: asm.crop(plan, torch.fft.ifft2(torch.fft.fft2(asm.pad(plan, g)) * hm)),
-               lambda: spectral.row_pass(x, wl2, dvec, m, kcfg), *work)
+               lambda: spectral.row_pass(x, wl2, dvec, m, kcfg), *work,
+               kernel_work=k1_row_pass_work(fr.shape[0], ROWS, rp, cp, 1, m, False))
         if name == "hat":
             _add_k2(k2, card, rng, "K2 field+per_plane (hat)", args,
                     lambda cot: asm.crop(plan, torch.fft.ifft2(torch.fft.fft2(asm.pad(plan, cot)) * torch.conj(hm))),

@@ -50,14 +50,24 @@ def bound_ms(nbytes, flops, peak_flop_per_s=PEAK_F32_FLOP_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_work(p, rows, cols, rp, cp, num_d, masked):
+def spectral_support(mask, rp, cp):
+    """Spectral elements whose H a call needs: the entries of this run's
+    mask that are not 0 (all rp * cp without a mask).  Elsewhere the masked
+    spectrum is 0, and so is its product with H."""
+    return rp * cp if mask is None else int((mask != 0).sum())
+
+
+def k1_work(p, rows, cols, rp, cp, num_d, mask):
     """Bytes and operations of propagate_planes (K1) on field input, and of
     its adjoint (K2), which mirrors it: fr, fi, wl2, dists and the mask read
     once, the cropped result written once; the column transform of the
     nonzero rows, the row transform once per plane, the inverse row
     transform per distance, the inverse column transform of the cropped
-    rows, and H (2 mul + add for fx^2 + fy^2, sub, sqrt, 2 mul for theta,
-    sin + cos counted as 2), the complex multiply (6) and the mask (2)."""
+    rows, and, per distance, on the mask's support only
+    (:func:`spectral_support`): H (2 mul + add for fx^2 + fy^2, sub, sqrt,
+    2 mul for theta, sin + cos counted as 2), the complex multiply (6) and
+    the mask (2).  ``mask`` is the call's (rp, cp) mask or None."""
+    masked = mask is not None
     in_bytes = 2 * p * rows * cols * 4 + p * 4 + num_d * 4 + (rp * cp * 4 if masked else 0)
     out_bytes = 2 * p * num_d * rows * cols * 4
     flops = (
@@ -65,14 +75,33 @@ def k1_work(p, rows, cols, rp, cp, num_d, masked):
         + fft_flops(rp, p * cp)
         + fft_flops(rp, p * num_d * cp)
         + fft_flops(cp, p * num_d * rows)
-        + p * num_d * rp * cp * (8 + 6 + (2 if masked else 0))
+        + p * num_d * spectral_support(mask, rp, cp) * (8 + 6 + (2 if masked else 0))
     )
     return in_bytes + out_bytes, flops
 
 
-def k1_bound_ms(p, rows, cols, rp, cp, num_d, masked):
+def k1_row_pass_work(p, rows, rp, cp, num_d, mask, from_spectrum):
+    """Bytes and operations of K1's row pass alone (``spectral.row_pass``):
+    its column-transformed input ((P, rows, cp); from a spectrum, the
+    (P, rp, cp) spectrum's entries on the mask's support, the only ones
+    the result depends on), wl2, dists and the mask read once,
+    (P, D, rows, cp) written once; the row FFT per plane and column (none
+    from a spectrum), the inverse row FFT per distance, and H, the complex
+    multiply and the mask per distance on the mask's support, counted as
+    in :func:`k1_work`."""
+    masked = mask is not None
+    support = spectral_support(mask, rp, cp)
+    in_bytes = (2 * p * (support if from_spectrum else rows * cp) * 4 + p * 4
+                + (p if num_d == 1 else num_d) * 4 + (rp * cp * 4 if masked else 0))
+    out_bytes = 2 * p * num_d * rows * cp * 4
+    flops = (fft_flops(rp, p * cp * (num_d + (0 if from_spectrum else 1)))
+             + p * num_d * support * (8 + 6 + (2 if masked else 0)))
+    return in_bytes + out_bytes, flops
+
+
+def k1_bound_ms(p, rows, cols, rp, cp, num_d, mask):
     """Least time for :func:`k1_work`'s work on the card, and its kind."""
-    return bound_ms(*k1_work(p, rows, cols, rp, cp, num_d, masked))
+    return bound_ms(*k1_work(p, rows, cols, rp, cp, num_d, mask))
 
 
 def relative_errors(kr, ki, rr, ri):

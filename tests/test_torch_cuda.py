@@ -81,9 +81,10 @@ def _k1_case(device, rows, cols, pad, batch, mode, seed=0):
 
 
 GRIDS = [
-    (24, 32, 4, 2),      # 32 x 42 grid: tile width 2
+    (24, 32, 4, 2),      # 32 x 40 grid: one FFT pass in K1, K2's tile width 2
     (48, 48, 8, 2),      # 64 x 64
     (384, 384, 320, 1),  # the main path's 1024 x 1024 grid
+    (768, 768, 640, 1),  # 2048 x 2048: three passes, two exchanges in K1
 ]
 
 
@@ -138,6 +139,51 @@ def test_k3_matches_torch_fft(device, shape, inverse):
     (gx_ref,) = torch.autograd.grad(y_ref, x, g)
     assert_rel_close(y.real, y.imag, y_ref.real, y_ref.imag)
     assert_rel_close(gx.real, gx.imag, gx_ref.real, gx_ref.imag)
+
+
+K3_LENGTHS = [2**k for k in range(1, 15)]
+
+
+@pytest.mark.parametrize("axis", [-1, -2])
+@pytest.mark.parametrize("n", K3_LENGTHS)
+def test_k3_axis_matches_torch_fft(device, n, axis):
+    """One K3 pass at every length it takes, along each axis, forward and
+    inverse (scale 1/n), on 3 planes of 37 lines: a count no block's lines
+    divide, so the last block is ragged."""
+    rng = np.random.default_rng(n)
+    shape = (3, 37, n) if axis == -1 else (3, n, 37)
+    x = torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                         .astype(np.complex64)).to(device)
+    before = fft.fft_axis.launches
+    y = fft.fft_axis(x, axis, False, 1.0)
+    yi = fft.fft_axis(x, axis, True, 1.0 / n)
+    torch.cuda.synchronize()
+    assert fft.fft_axis.launches == before + 2
+    want = torch.fft.fft(x, dim=axis)
+    assert_rel_close(y.real, y.imag, want.real, want.imag)
+    want = torch.fft.ifft(x, dim=axis)
+    assert_rel_close(yi.real, yi.imag, want.real, want.imag)
+
+
+@pytest.mark.parametrize("n", K3_LENGTHS)
+def test_k3_fft2_backward_matches_torch_fft(device, n):
+    """fft2 and ifft2 through K3 with their backward, on (3, n, 64) planes."""
+    rng = np.random.default_rng(n + 1)
+    shape = (3, n, 64)
+    x = torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                         .astype(np.complex64)).to(device).requires_grad_(True)
+    g = torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                         .astype(np.complex64)).to(device)
+    for ours, ref in ((fft.fft2, torch.fft.fft2), (fft.ifft2, torch.fft.ifft2)):
+        before = fft.fft_axis.launches
+        y = ours(x)
+        (gx,) = torch.autograd.grad(y, x, g)
+        torch.cuda.synchronize()
+        assert fft.fft_axis.launches == before + 4
+        y_ref = ref(x)
+        (gx_ref,) = torch.autograd.grad(y_ref, x, g)
+        assert_rel_close(y.real, y.imag, y_ref.real, y_ref.imag)
+        assert_rel_close(gx.real, gx.imag, gx_ref.real, gx_ref.imag)
 
 
 def test_kernels_raise_instead_of_falling_back(device):

@@ -1,0 +1,114 @@
+"""The card-side measurement helpers that run on the CPU too: the work
+counts behind the bounds ``chip_smoke.py`` reports, and the ablation
+script's reading of ptxas and of the blocks an SM holds."""
+
+import numpy as np
+import pytest
+import torch
+
+from learned_hologram_gan_tpu_torch import fft_ablation
+from learned_hologram_gan_tpu_torch.ops.cuda import spectral
+from learned_hologram_gan_tpu_torch.utils import cuda_measure as cm
+
+
+def _mask(rp, cp, radius):
+    ky = np.fft.fftfreq(rp)[:, None]
+    kx = np.fft.fftfreq(cp)[None, :]
+    return torch.from_numpy((np.hypot(ky, kx) <= radius).astype(np.float32))
+
+
+def test_spectral_support_counts_the_masks_nonzero_entries():
+    mask = _mask(64, 32, 0.3)
+    assert cm.spectral_support(None, 64, 32) == 64 * 32
+    assert cm.spectral_support(mask, 64, 32) == int(mask.sum()) < 64 * 32
+    assert cm.spectral_support(0.5 * mask, 64, 32) == int(mask.sum())
+
+
+@pytest.mark.parametrize("from_spectrum", [False, True])
+def test_row_pass_work_counts_h_only_where_the_mask_passes(from_spectrum):
+    """H, its multiply and the mask's are counted on the mask's support only,
+    and from a spectrum only its entries there are read; a mask of ones
+    costs its read and its multiply, nothing else."""
+    p, rows, rp, cp, num_d = 3, 24, 64, 32, 2
+    mask = _mask(rp, cp, 0.3)
+    support = int(mask.sum())
+    ones = torch.ones(rp, cp)
+    nb_none, fl_none = cm.k1_row_pass_work(p, rows, rp, cp, num_d, None, from_spectrum)
+    nb_ones, fl_ones = cm.k1_row_pass_work(p, rows, rp, cp, num_d, ones, from_spectrum)
+    nb_mask, fl_mask = cm.k1_row_pass_work(p, rows, rp, cp, num_d, mask, from_spectrum)
+    assert nb_ones == nb_none + rp * cp * 4
+    assert fl_ones == fl_none + p * num_d * rp * cp * 2
+    assert fl_ones - fl_mask == p * num_d * (rp * cp - support) * 16
+    read_saved = 2 * p * (rp * cp - support) * 4 if from_spectrum else 0
+    assert nb_ones - nb_mask == read_saved
+
+
+def test_wrapper_work_counts_h_only_where_the_mask_passes():
+    p, rows, cols, rp, cp, num_d = 3, 24, 16, 64, 32, 3
+    mask = _mask(rp, cp, 0.25)
+    nb, fl = cm.k1_work(p, rows, cols, rp, cp, num_d, mask)
+    nb1, fl1 = cm.k1_work(p, rows, cols, rp, cp, num_d, torch.ones(rp, cp))
+    assert nb == nb1
+    assert fl1 - fl == p * num_d * (rp * cp - int(mask.sum())) * 16
+    assert cm.k1_bound_ms(p, rows, cols, rp, cp, num_d, mask) == cm.bound_ms(nb, fl)
+
+
+PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122asm_row_adjoint_kernelILi4EEEvPK6float2' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122asm_row_adjoint_kernelILi4EEEvPK6float2
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119asm_row_pass_kernelILi32EEEvPK6float2' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119asm_row_pass_kernelILi32EEEvPK6float2
+    144 bytes stack frame, 72 bytes spill stores, 72 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 144 bytes cumulative stack size
+"""
+
+
+def test_ablation_reads_ptxas_per_entry_function():
+    assert fft_ablation._ptxas(PTXAS_LOG, "asm_row_pass_kernelILi32E") == (128, 72)
+    assert fft_ablation._ptxas(PTXAS_LOG, "asm_row_adjoint_kernelILi4E") == (40, 0)
+    assert fft_ablation._ptxas("", "asm_row_pass_kernelILi32E") is None
+
+
+@pytest.mark.parametrize("regs,threads,smem,want", [
+    (128, 256, 8 * 1056 * 8, 2),   # K1, D = 1: registers hold it to 2
+    (128, 128, 4 * 2080 * 8, 3),   # K1, D > 1: shared memory holds it to 3
+    (114, 128, 4 * 1056 * 8, 4),   # K3 along axis -1: registers
+    (32, 1024, 0, 2),              # threads
+])
+def test_ablation_blocks_per_sm(regs, threads, smem, want):
+    assert fft_ablation._blocks_per_sm(regs, threads, smem) == want
+
+
+def test_ablation_builds_name_macros_the_sources_define():
+    """Each macro the ablation builds set is read by the sources it builds,
+    so that no ablated build silently times the kernel as shipped."""
+    csrc = spectral.__file__.rsplit("/ops/", 1)[0] + "/csrc/"
+    k1 = open(csrc + "k1_asm_propagate.cu").read() + open(csrc + "fft_hopper.cuh").read()
+    k3 = open(csrc + "k3_fft.cu").read() + open(csrc + "fft_hopper.cuh").read()
+    for builds, src in ((fft_ablation.K1_BUILDS, k1), (fft_ablation.K3_BUILDS, k3)):
+        for defines in builds:
+            for d in defines:
+                assert f"#ifdef {d}" in src
+
+
+def test_build_keeps_the_log_of_a_cached_library(tmp_path, monkeypatch):
+    """A second build of the same source, headers and flags loads nothing
+    new and still returns ptxas' report; defines give another library and
+    reach nvcc."""
+    from learned_hologram_gan_tpu_torch.ops.cuda import build
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\necho "ptxas info    : Used 114 registers; nvcc $*"\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n: > "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    first = build.build_library("k3_fft")
+    second = build.build_library("k3_fft")
+    assert not first.cached and second.cached and second.path == first.path
+    assert "Used 114 registers" in first.log and second.log == first.log
+    ablated = build.build_library("k3_fft", ("LHG_ABLATE_FFT",))
+    assert not ablated.cached and ablated.path != first.path
+    assert "-DLHG_ABLATE_FFT" in ablated.log and "-DLHG_ABLATE_FFT" not in first.log
