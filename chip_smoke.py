@@ -17,9 +17,10 @@ configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
   3. each kernel (K1 in its inference and training modes, the two-H hat
      path's included, K2, K3) against its plain PyTorch version at the
      paths' shapes, with its time, the plain version's, a library yardstick
-     and the card's lower bound for the same work; K1's row pass alone
-     against the bound of its own work (``kernel_bound_ms``), and each of
-     K3's one-axis passes in TB/s beside cuFFT's;
+     and the card's lower bound for the same work; K1's row pass and K2's
+     row adjoint alone against the bound of their own work
+     (``kernel_bound_ms``; their registers and spills from ptxas in phase
+     2), and each of K3's one-axis passes in TB/s beside cuFFT's;
   4. inference through ``generate_poh.main`` on synthetic RGBD files, with
      the launch counters reset before and read after, then the batch-16
      POH rate;
@@ -39,8 +40,9 @@ configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
      --dtype bfloat16``, then the batch-16 pipeline timed as bench.py times
      it, median and spread of 5 trials of 10
      (``learned_hologram_gan_tpu_torch/bf16_smoke.py``);
-  8. the bfloat16 fused eval path, K5's bfloat16 variant on all nine blocks
-     against its plain version and the cuDNN bfloat16 chain;
+  8. the bfloat16 fused eval path, K5's bfloat16 variant (wgmma) on all
+     nine blocks against its plain version and the cuDNN bfloat16 chain,
+     block by block with TFLOP/s;
   9. bfloat16 training through ``training_model.main --use_gan --dtype
      bfloat16 --perceptual random``, with the same four step options, the
      default step's split also under ``torch.profiler``;
@@ -367,7 +369,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr, flush=True)
         return 1
-    from learned_hologram_gan_tpu_torch import bf16_smoke, fused_smoke, train_smoke
+    from learned_hologram_gan_tpu_torch import bf16_smoke, fft_ablation, fused_smoke, train_smoke
     from learned_hologram_gan_tpu_torch.ops.cuda import build, conv_block, fft, spectral, transfer
 
     t0 = time.perf_counter()
@@ -396,6 +398,18 @@ def main():
             for line in res.log.splitlines():
                 if "ptxas" in line or "spill" in line:
                     print(line.strip(), flush=True)
+        # the redesigned kernels' registers and spills, by name
+        registers = {}
+        for label, lib, entry in (
+                ("K1 row pass (E = 32)", spectral.KERNEL_NAME, "asm_row_pass_kernelILi32E"),
+                ("K2 row adjoint (E = 32)", spectral.KERNEL_NAME, "asm_row_adjoint_kernelILi32E"),
+                ("K5 bf16 wgmma, 128 channels a tile", conv_block.KERNEL_NAME, "conv_wgmma_kernelILi128E"),
+                ("K5 bf16 wgmma, 64 channels a tile", conv_block.KERNEL_NAME, "conv_wgmma_kernelILi64E")):
+            report = fft_ablation._ptxas(results[lib].log, entry)
+            if report is None:
+                raise AssertionError(f"ptxas reported nothing for {entry}")
+            registers[label] = dict(registers=report[0], spill_bytes=report[1])
+            print(f"{label}: {report[0]} registers, {report[1]} bytes spilled", flush=True)
         for mod in (fft, transfer, conv_block):
             mod._kernel_fn()
         spectral._kernel_fns()
@@ -461,10 +475,13 @@ def main():
               + ", ".join(f"{k} {v:.1f} ms" for k, v in r["split"].items()) + f" [{card}]", flush=True)
     print(f"total wall {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)
+    for key in ("k2", "k2_two_h"):
+        train_kernels[key].update(registers["K2 row adjoint (E = 32)"])
     kernels = [k1, train_kernels["k1_train"], train_kernels["k2"], train_kernels["k3"],
                train_kernels["k1_two_h"], train_kernels["k2_two_h"],
                dict(k4.json(), launches=k4_launches), dict(k5.json(), launches=k5_launches),
-               dict(k5_bf16.json(), launches=k5_bf16_launches)]
+               dict(k5_bf16.json(), launches=k5_bf16_launches,
+                    registers={k: v for k, v in registers.items() if k.startswith("K5")})]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

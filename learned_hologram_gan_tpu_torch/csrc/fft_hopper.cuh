@@ -1,5 +1,5 @@
-// Register-resident FFT core for Hopper, shared by K1 (k1_asm_propagate.cu,
-// the row pass) and K3 (k3_fft.cu).  K2 stays on fft_radix2.cuh.
+// Register-resident FFT core for Hopper, shared by K1 and K2
+// (k1_asm_propagate.cu: the row pass and its adjoint) and K3 (k3_fft.cu).
 //
 // A line of n = 2^m points is transformed by T = n / E threads that each
 // hold E = min(n, 32) of its values in registers: thread j holds element

@@ -40,10 +40,17 @@
 //     (where the masked spectrum is not 0).  The inverse transform is
 //     conj(F(conj(.))), folded into that multiply and the store, and only
 //     the crop window [r0, r0+rows) is written.
-// Design of K2 (unchanged): one block owns plane p and TC neighbouring
-// columns; the rp-point FFTs run in shared memory (radix-2, in place,
-// fft_radix2.cuh): rows are stored in bit-reversed order and come out in
-// natural order, and the distance sum accumulates in shared memory.
+// Design of K2, the mirror of K1 on the same core: one block owns plane p
+// and cpb interleaved columns; per distance it reads the `rows` nonzero
+// rows of the cotangent, runs the forward row FFT in registers
+// (fft_hopper.cuh), stages the spectrum in thread-private shared-memory
+// slots (the exchange's space, which no FFT is using then) and multiplies
+// it by conj(H) * mask one value at a time, skipping H where the mask is
+// 0.  The distance sum stays in those slots when D = 1 and in a second
+// thread-private array, as K1 keeps `spec`, when D > 1.  Field mode
+// finishes with one inverse, conj(F(conj(.))) folded into the multiply and
+// the store, and writes only the crop window; from_spectrum stores the full
+// spectrum scaled by 1 / rp straight from the multiply.
 //
 // H repeats the float32 operation order of spectral.py:_h_tile and
 // asm.py:_w_grid exactly: fx = k * f32(1/(rp*pitch)), fx*fx + fy*fy (no FMA
@@ -63,7 +70,12 @@
 // and distance where the mask is not 0) is ~1.7e10 FLOP or ~0.25 ms at 67
 // TFLOP/s f32.  In training (from_spectrum, P = 24 planes, D = 1 per
 // plane) the row pass needs the spectrum only inside the mask, 128 of its
-// 201 MB at filter 0.45, and writes 75 MB: it is bound by bytes.  Everything between the read and the write stays on chip.  K1's
+// 201 MB at filter 0.45, and writes 75 MB: it is bound by bytes.  K2 is
+// bound by bytes in every mode of the train step: at 24 planes
+// from_spectrum + per_plane it reads the (24, 384, 1024) cotangent (75 MB)
+// and writes the full spectrum (201 MB, 0 outside the mask), ~0.08 ms;
+// the conj_h and two-H calls (12 planes, field) move ~0.08 GB, ~0.025 ms.
+// Everything between the read and the write stays on chip.  The kernels'
 // instructions outrun both counts: the full-precision sincosf of H is ~30
 // an element and distance, and the DFTs' adds do not fuse into FMAs.
 
@@ -71,20 +83,15 @@
 #include <stdint.h>
 
 #include "fft_hopper.cuh"
-#include "fft_radix2.cuh"
 
 namespace {
 
-using lhg::bit_reverse;
-using lhg::cmul;
-using lhg::fft_rows;
-using lhg::log2_int;
 using lhg::hopper::FftPlan;
+using lhg::hopper::cmul;
 using lhg::hopper::LineSync;
 using lhg::hopper::fft_line;
 
-constexpr int kThreads = 512;         // K2's block
-constexpr int kRowPassThreads = 512;  // K1's largest block (cpb * T)
+constexpr int kRowPassThreads = 512;  // K1's and K2's largest block (cpb * T)
 
 // H at padded row k (fx) and padded column col (fy), for the plane's
 // 1/lambda^2 `wl2_p` and sz = f32(+-2pi) * z.
@@ -106,17 +113,13 @@ __device__ __forceinline__ float2 h_transfer(int k, int col, int rp, int cp, flo
   return make_float2(hc, hs);
 }
 
-// H * mask (no mask: H).
+// H * m, m the mask's value at (k, col) (no mask: H).
 __device__ __forceinline__ float2 h_masked(int k, int col, int rp, int cp,
                                            float wl2_p, float sz,
                                            float inv_rp_pitch,
-                                           float inv_cp_pitch,
-                                           const float* __restrict__ mask) {
+                                           float inv_cp_pitch, bool masked, float m) {
   float2 h = h_transfer(k, col, rp, cp, wl2_p, sz, inv_rp_pitch, inv_cp_pitch);
-  if (mask != nullptr) {
-    const float m = mask[static_cast<size_t>(k) * cp + col];
-    h = make_float2(__fmul_rn(h.x, m), __fmul_rn(h.y, m));
-  }
+  if (masked) h = make_float2(__fmul_rn(h.x, m), __fmul_rn(h.y, m));
   return h;
 }
 
@@ -213,83 +216,95 @@ asm_row_pass_kernel(const float2* __restrict__ x,      // (P, rows|rp, cp)
   }
 }
 
-template <int TC>
-__global__ void __launch_bounds__(kThreads)
-asm_row_adjoint_kernel(const float2* __restrict__ g,    // (P, D, rows, cp)
-                       float2* __restrict__ out,        // (P, rows|rp, cp)
-                       const float* __restrict__ wl2,   // (P,)
-                       const float* __restrict__ dists,  // (D,) or (P,)
-                       const float* __restrict__ mask,  // (rp, cp) or null
-                       const float2* __restrict__ twiddle,  // (rp / 2,)
+// K2, laid out as K1: thread t holds padded rows j + T c of column
+// col0 + t % cpb in v[c]; its slot c of a thread-private array is
+// [c * blockDim + t]: `work` (the spectrum of the current distance, then
+// the product or the conjugated sum that the inverse takes, in the
+// exchange's space) and `acc` (the distance sum, when D > 1).
+template <int E>
+__global__ void __launch_bounds__(kRowPassThreads)
+asm_row_adjoint_kernel(const float2* __restrict__ g,      // (P, D, rows, cp)
+                       float2* __restrict__ out,          // (P, rows|rp, cp)
+                       const float* __restrict__ wl2,     // (P,)
+                       const float* __restrict__ dists,   // (D,) or (P,)
+                       const float* __restrict__ mask,    // (rp, cp) or null
+                       const float2* __restrict__ twiddle,  // the plan's tables
+                       const __grid_constant__ FftPlan plan, int cpb,
                        int rows, int cp, int rp, int r0, int num_d,
                        int from_spectrum, int per_plane, float inv_rp_pitch,
                        float inv_cp_pitch, float two_pi_signed) {
   extern __shared__ float2 smem[];
-  float2* tw = smem;                   // (rp / 2,) twiddles
-  float2* work = smem + rp / 2;        // (rp, TC) per-distance buffer
-  float2* acc = work + rp * TC;        // (rp, TC) distance sum, natural order
-
+  const int T = plan.threads;
+  const int t = threadIdx.x;
+  const int nt = blockDim.x;
+  const int l = t % cpb;
+  const int j = t / cpb;
   const int p = blockIdx.y;
-  const int col0 = blockIdx.x * TC;
-  const int log2rp = log2_int(rp);
-  const int shift = 32 - log2rp;
-
-  for (int i = threadIdx.x; i < rp / 2; i += blockDim.x) tw[i] = twiddle[i];
-  for (int i = threadIdx.x; i < rp * TC; i += blockDim.x) {
-    acc[i] = make_float2(0.f, 0.f);
-  }
-
+  const int col = blockIdx.x * cpb + l;
+  const bool valid = col < cp;
+  const int colc = valid ? col : cp - 1;  // a column to read and compute H at; not stored
+  float2* work = smem;  // the exchange's space, at least rp values a column
+  const int work_len = plan.buffer > rp ? plan.buffer : rp;
+  float2* acc = num_d > 1 ? smem + static_cast<size_t>(cpb) * work_len : work;
+  const LineSync sync{false};
   const float wl2_p = wl2[p];
-  const float conj_sign = -two_pi_signed;
-  for (int d = 0; d < num_d; ++d) {
-    for (int i = threadIdx.x; i < rp * TC; i += blockDim.x) {
-      work[i] = make_float2(0.f, 0.f);
-    }
-    __syncthreads();
-    const float2* gp = g + (static_cast<size_t>(p) * num_d + d) * rows * cp + col0;
-    for (int i = threadIdx.x; i < rows * TC; i += blockDim.x) {
-      const int r = i / TC;
-      const int c = i % TC;
-      work[bit_reverse(r0 + r, shift) * TC + c] = gp[static_cast<size_t>(r) * cp + c];
-    }
-    __syncthreads();
-    fft_rows<TC>(work, tw, rp, log2rp, false);
-
-    const float sz = __fmul_rn(conj_sign, per_plane ? dists[p] : dists[d]);
-    for (int i = threadIdx.x; i < rp * TC; i += blockDim.x) {
-      const int k = i / TC;
-      const int c = i % TC;
-      const float2 h = h_masked(k, col0 + c, rp, cp, wl2_p, sz, inv_rp_pitch,
-                                inv_cp_pitch, mask);
-      const float2 v = cmul(work[i], h);
-      acc[i] = make_float2(acc[i].x + v.x, acc[i].y + v.y);
-    }
-    __syncthreads();
-  }
-
+  const float conj_sign = -two_pi_signed;  // conj(H): theta negated exactly
   const float scale = 1.0f / static_cast<float>(rp);
-  if (from_spectrum) {
-    float2* op = out + static_cast<size_t>(p) * rp * cp + col0;
-    for (int i = threadIdx.x; i < rp * TC; i += blockDim.x) {
-      const int k = i / TC;
-      const int c = i % TC;
-      op[static_cast<size_t>(k) * cp + c] = make_float2(acc[i].x * scale, acc[i].y * scale);
+  const bool masked = mask != nullptr;
+
+  float2 v[E];
+  for (int d = 0; d < num_d; ++d) {
+    const float2* gp = g + (static_cast<size_t>(p) * num_d + d) * rows * cp + colc;
+#pragma unroll
+    for (int c = 0; c < E; ++c) {
+      const int r = j + c * T - r0;
+      v[c] = (r >= 0 && r < rows) ? gp[static_cast<size_t>(r) * cp] : make_float2(0.f, 0.f);
     }
-    return;
+    fft_line<E>(v, plan, j, smem + l, cpb, twiddle, sync);
+    __syncthreads();  // the exchange's reads are done: its space holds `work`
+#pragma unroll
+    for (int c = 0; c < E; ++c) work[c * nt + t] = v[c];
+    const float sz = __fmul_rn(conj_sign, per_plane ? dists[p] : dists[d]);
+    const bool last = d + 1 == num_d;
+    // spectrum * conj(H) * mask, one value at a time (few registers), H
+    // skipped where the mask is 0; summed over the distances
+#pragma unroll 2
+    for (int c = 0; c < E; ++c) {
+      const int k = j + c * T;
+      const float m = masked ? mask[static_cast<size_t>(k) * cp + colc] : 1.0f;
+      float2 a = make_float2(0.f, 0.f);
+      if (m != 0.0f) {
+        a = cmul(work[c * nt + t],
+                 h_masked(k, colc, rp, cp, wl2_p, sz, inv_rp_pitch, inv_cp_pitch, masked, m));
+      }
+      if (d > 0) {
+        const float2 s = acc[c * nt + t];
+        a = make_float2(s.x + a.x, s.y + a.y);
+      }
+      if (!last) {
+        acc[c * nt + t] = a;
+      } else if (from_spectrum) {
+        if (valid) {
+          out[(static_cast<size_t>(p) * rp + k) * cp + col] = make_float2(a.x * scale, a.y * scale);
+        }
+      } else {
+        work[c * nt + t] = make_float2(a.x, -a.y);  // conjugated for the inverse
+      }
+    }
   }
-  for (int i = threadIdx.x; i < rp * TC; i += blockDim.x) {
-    const int k = i / TC;
-    const int c = i % TC;
-    work[bit_reverse(k, shift) * TC + c] = acc[i];
-  }
-  __syncthreads();
-  fft_rows<TC>(work, tw, rp, log2rp, true);
-  float2* op = out + static_cast<size_t>(p) * rows * cp + col0;
-  for (int i = threadIdx.x; i < rows * TC; i += blockDim.x) {
-    const int r = i / TC;
-    const int c = i % TC;
-    const float2 v = work[(r0 + r) * TC + c];
-    op[static_cast<size_t>(r) * cp + c] = make_float2(v.x * scale, v.y * scale);
+  if (from_spectrum) return;
+  // the inverse: conj(F(conj(sum))), only the crop window stored
+#pragma unroll
+  for (int c = 0; c < E; ++c) v[c] = work[c * nt + t];
+  fft_line<E>(v, plan, j, smem + l, cpb, twiddle, sync);
+  if (!valid) return;
+  float2* op = out + static_cast<size_t>(p) * rows * cp + col;
+#pragma unroll
+  for (int c = 0; c < E; ++c) {
+    const int r = j + c * T - r0;
+    if (r >= 0 && r < rows) {
+      op[static_cast<size_t>(r) * cp] = make_float2(v[c].x * scale, -v[c].y * scale);
+    }
   }
 }
 
@@ -309,31 +324,19 @@ bool valid_args(const Args& a) {
          a.num_planes <= 65535 && (!a.per_plane || a.num_d == 1);
 }
 
-template <int TC>
-int launch_k2(const Args& a, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(2) * a.rp * TC + a.rp / 2) * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(asm_row_adjoint_kernel<TC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(a.cp / TC, a.num_planes);
-  asm_row_adjoint_kernel<TC><<<grid, kThreads, smem, stream>>>(
-      a.in, a.out, a.wl2, a.dists, a.mask, a.twiddle, a.rows, a.cp, a.rp,
-      a.r0, a.num_d, a.from_spectrum, a.per_plane, a.inv_rp_pitch,
-      a.inv_cp_pitch, a.two_pi_signed);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// K1 (adjoint false) or K2 (true): cpb columns of a plane to a block, the
+// exchange's space (at least rp values a column) and, when D > 1, a second
+// array of rp values a column in shared memory.
 template <int E>
-int launch_k1(const Args& a, const FftPlan& plan, int cpb, cudaStream_t stream) {
+int launch_row(bool adjoint, const Args& a, const FftPlan& plan, int cpb, cudaStream_t stream) {
+  const auto kernel = adjoint ? asm_row_adjoint_kernel<E> : asm_row_pass_kernel<E>;
   const size_t smem = static_cast<size_t>(cpb) *
                       ((plan.buffer > a.rp ? plan.buffer : a.rp) + (a.num_d > 1 ? a.rp : 0)) * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(asm_row_pass_kernel<E>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.cp + cpb - 1) / cpb, a.num_planes);
-  asm_row_pass_kernel<E><<<grid, cpb * plan.threads, smem, stream>>>(
+  kernel<<<grid, cpb * plan.threads, smem, stream>>>(
       a.in, a.out, a.wl2, a.dists, a.mask, a.twiddle, plan, cpb, a.rows, a.cp, a.rp,
       a.r0, a.num_d, a.from_spectrum, a.per_plane, a.inv_rp_pitch,
       a.inv_cp_pitch, a.two_pi_signed);
@@ -352,6 +355,33 @@ Args make_args(const void* in, void* out, const void* wl2, const void* dists,
               inv_rp_pitch, inv_cp_pitch, two_pi_signed};
 }
 
+// Checks the arguments and the plan, then launches K1 or K2.
+int launch(bool adjoint, const void* in, void* out, const void* wl2, const void* dists,
+           const void* mask, const void* twiddle, const int* plan_ints, int num_planes,
+           int rows, int cp, int rp, int r0, int num_d, int cpb, int from_spectrum,
+           int per_plane, float inv_rp_pitch, float inv_cp_pitch, float two_pi_signed,
+           int device, void* stream) {
+  const Args a = make_args(in, out, wl2, dists, mask, twiddle, num_planes, rows,
+                           cp, rp, r0, num_d, from_spectrum, per_plane,
+                           inv_rp_pitch, inv_cp_pitch, two_pi_signed);
+  const FftPlan plan = lhg::hopper::plan_from_ints(plan_ints);
+  if (!valid_args(a) || plan.n != rp || plan.elems * plan.threads != rp || cpb < 1 ||
+      (cpb & (cpb - 1)) != 0 || cpb * plan.threads > kRowPassThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (plan.elems) {
+    case 32: return launch_row<32>(adjoint, a, plan, cpb, s);
+    case 16: return launch_row<16>(adjoint, a, plan, cpb, s);
+    case 8: return launch_row<8>(adjoint, a, plan, cpb, s);
+    case 4: return launch_row<4>(adjoint, a, plan, cpb, s);
+    case 2: return launch_row<2>(adjoint, a, plan, cpb, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Launches K1 on `stream`.  Returns a cudaError_t value: 0 on success.
@@ -367,50 +397,24 @@ extern "C" int k1_asm_row_pass(const void* x, void* out, const void* wl2,
                                int num_d, int cpb, int from_spectrum, int per_plane,
                                float inv_rp_pitch, float inv_cp_pitch,
                                float two_pi_signed, int device, void* stream) {
-  const Args a = make_args(x, out, wl2, dists, mask, twiddle, num_planes, rows,
-                           cp, rp, r0, num_d, from_spectrum, per_plane,
-                           inv_rp_pitch, inv_cp_pitch, two_pi_signed);
-  const FftPlan plan = lhg::hopper::plan_from_ints(plan_ints);
-  if (!valid_args(a) || plan.n != rp || plan.elems * plan.threads != rp || cpb < 1 ||
-      (cpb & (cpb - 1)) != 0 || cpb * plan.threads > kRowPassThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (plan.elems) {
-    case 32: return launch_k1<32>(a, plan, cpb, s);
-    case 16: return launch_k1<16>(a, plan, cpb, s);
-    case 8: return launch_k1<8>(a, plan, cpb, s);
-    case 4: return launch_k1<4>(a, plan, cpb, s);
-    case 2: return launch_k1<2>(a, plan, cpb, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch(false, x, out, wl2, dists, mask, twiddle, plan_ints, num_planes, rows, cp, rp,
+                r0, num_d, cpb, from_spectrum, per_plane, inv_rp_pitch, inv_cp_pitch,
+                two_pi_signed, device, stream);
 }
 
-// Launches K2 on `stream`: g is (P, num_d, rows, cp); out is (P, rows, cp),
-// or (P, rp, cp) when from_spectrum.  two_pi_signed is the forward's sign;
-// twiddle is fft_radix2.cuh's (rp / 2,) table, tc the columns of a block.
+// Launches K2 on `stream`, with K1's arguments and checks: g is
+// (P, num_d, rows, cp); out is (P, rows, cp), or (P, rp, cp) when
+// from_spectrum.  two_pi_signed is the forward's sign.
 extern "C" int k2_asm_row_adjoint(const void* g, void* out, const void* wl2,
                                   const void* dists, const void* mask,
-                                  const void* twiddle, int num_planes, int rows,
-                                  int cp, int rp, int r0, int num_d, int tc,
-                                  int from_spectrum, int per_plane,
+                                  const void* twiddle, const int* plan_ints,
+                                  int num_planes, int rows, int cp, int rp, int r0,
+                                  int num_d, int cpb, int from_spectrum, int per_plane,
                                   float inv_rp_pitch, float inv_cp_pitch,
                                   float two_pi_signed, int device, void* stream) {
-  const Args a = make_args(g, out, wl2, dists, mask, twiddle, num_planes, rows,
-                           cp, rp, r0, num_d, from_spectrum, per_plane,
-                           inv_rp_pitch, inv_cp_pitch, two_pi_signed);
-  if (!valid_args(a) || a.cp % tc != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tc) {
-    case 4: return launch_k2<4>(a, s);
-    case 2: return launch_k2<2>(a, s);
-    case 1: return launch_k2<1>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch(true, g, out, wl2, dists, mask, twiddle, plan_ints, num_planes, rows, cp, rp,
+                r0, num_d, cpb, from_spectrum, per_plane, inv_rp_pitch, inv_cp_pitch,
+                two_pi_signed, device, stream);
 }
 
 extern "C" const char* k1_error_string(int code) {

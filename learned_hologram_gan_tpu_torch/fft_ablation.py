@@ -1,17 +1,21 @@
-"""What holds K1's row pass and K3 back, read by ablation on one Hopper GPU.
+"""What holds K1's row pass, K2's row adjoint and K3 back, read by ablation on one Hopper GPU.
 
     python3 -m learned_hologram_gan_tpu_torch.fft_ablation
 
-Builds K1 (``csrc/k1_asm_propagate.cu``) and K3 (``csrc/k3_fft.cu``) as
-they ship, and again with parts of their work compiled out:
-``LHG_ABLATE_H`` makes K1's H 1 (no sincosf, no w-grid arithmetic);
-``LHG_ABLATE_FFT`` skips the FFT core's passes (``csrc/fft_hopper.cuh``),
-so that the loads, the stores and the per-element work stay.  It then times
-each build's kernel alone by CUDA events at the main path's full-width
-shapes: K1's inference calls (48 planes, D = 1 ``conj_h`` and D = 3 masked),
-its training call (24 planes ``from_spectrum`` + ``per_plane``) and the eval
-step's (12 planes, D = 20), and one K3 pass of (12, 1024, 1024) along each
-axis, beside cuFFT's and a device copy of the same bytes.  The differences
+Builds K1 and K2 (``csrc/k1_asm_propagate.cu``) and K3 (``csrc/k3_fft.cu``)
+as they ship, and again with parts of their work compiled out:
+``LHG_ABLATE_H`` makes K1's and K2's H 1 (no sincosf, no w-grid
+arithmetic); ``LHG_ABLATE_FFT`` skips the FFT core's passes
+(``csrc/fft_hopper.cuh``), so that the loads, the stores and the
+per-element work stay.  It then times each build's kernel alone by CUDA
+events at the main path's full-width shapes: K1's inference calls (48
+planes, D = 1 ``conj_h`` and D = 3 masked), its training call (24 planes
+``from_spectrum`` + ``per_plane``) and the eval step's (12 planes, D = 20);
+K2's three calls of a train step (24 planes ``from_spectrum`` +
+``per_plane``, AP2POH's 12 planes ``conj_h``, the two-H hat's 12 planes
+field + ``per_plane`` with a product mask); and one K3 pass of
+(12, 1024, 1024) along each axis, beside cuFFT's and a device copy of the
+same bytes.  The differences
 say what each part of the work costs.  An ablated build computes a wrong
 result; nothing but this script loads one.
 
@@ -122,12 +126,46 @@ def _k1_calls(dev):
     return calls
 
 
+def _k2_calls(dev):
+    """(name, row_adjoint arguments) of a train step's three K2 calls, on a
+    seeded cotangent already transformed along its columns, as
+    ``train_smoke.py`` makes them."""
+    from .config import OpticsConfig
+    from .ops import asm
+
+    rng = np.random.default_rng(2)
+    optics = OpticsConfig(rows=ROWS, cols=COLS, pad_size=PAD, filter_radius_coefficient=0.45)
+    train = asm.make_plan(optics, distances=TRAIN_DISTANCES, device=dev)
+    gen = asm.make_plan(optics, distances=[1e-3], device=dev)
+    idx = torch.from_numpy(rng.permutation(len(TRAIN_DISTANCES))[:4]).to(dev)
+    field = torch.ones(4, 3, ROWS, COLS, dtype=torch.complex64, device=dev)
+    spec = torch.ones(8, 3, 1024, 1024, dtype=torch.complex64, device=dev)
+    sets = [
+        ("train from_spectrum+per_plane, 24 planes",
+         asm.fused_args(train, spec, train.distances[torch.cat([idx, idx])], from_spectrum=True,
+                        per_plane=True)),
+        ("AP2POH conj_h D=1, 12 planes",
+         asm.fused_args(gen, field, gen.distances[:1], conj_h=True, use_mask=False)),
+        ("two-H hat field+per_plane, 12 planes",
+         asm.fused_args(train, field, gen.distances[0] + train.distances[idx], per_plane=True,
+                        mask_override=gen.mask * train.mask)),
+    ]
+    calls = []
+    for name, (fr, _, wl2, dvec, mask, kcfg) in sets:
+        shape = (fr.shape[0], kcfg[4], ROWS, COLS)
+        g = torch.complex(*(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+                            for _ in range(2)))
+        x = torch.fft.fft(torch.nn.functional.pad(g, (PAD, PAD)), dim=-1)
+        calls.append((name, (x, wl2, dvec, mask, kcfg)))
+    return calls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("fft_ablation: no CUDA device", file=sys.stderr)
         return 1
     from .ops.cuda import build, fft, fft_plan, spectral
-    from .utils.cuda_measure import bound_ms, cuda_ms, k1_row_pass_work
+    from .utils.cuda_measure import bound_ms, cuda_ms, k1_row_pass_work, k2_row_adjoint_work
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -163,6 +201,32 @@ def main() -> int:
     for cname, (x, wl2, dvec, mask, kcfg) in calls:
         p, num_d, from_spectrum = x.shape[0], kcfg[4], kcfg[2]
         nbytes, flops = k1_row_pass_work(p, ROWS, kcfg[5], kcfg[6], num_d, mask, from_spectrum)
+        b, kind = bound_ms(nbytes, flops)
+        print(f"  bound {cname}: {b:.4f} ms ({kind}; {nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)",
+              flush=True)
+    del calls
+    torch.cuda.empty_cache()
+
+    print("K2 row adjoint alone, ms by CUDA events (mean of 20); each call's own bound beside it",
+          flush=True)
+    calls = _k2_calls(dev)
+    for defines in K1_BUILDS:
+        report = _ptxas(reports[spectral.KERNEL_NAME, defines], "asm_row_adjoint_kernelILi32E")
+        cells = []
+        with _kernels_built_with(spectral, "_kernel_fns", defines):
+            for cname, (x, wl2, dvec, mask, kcfg) in calls:
+                ms = cuda_ms(lambda: spectral.row_adjoint(x, wl2, dvec, mask, kcfg), iters=20, warmup=3)
+                cells.append(f"{cname} {ms:.4f}")
+        occupancy = ""
+        if report is not None:
+            regs, spill = report
+            cpb = spectral._pick_cpb(plan, False)
+            per_sm = _blocks_per_sm(regs, cpb * plan.threads, cpb * max(plan.buffer, plan.n) * 8)
+            occupancy = (f"; {regs} registers, {spill} B spilled; blocks an SM holds (D = 1): "
+                         f"{per_sm} of {cpb * plan.threads} threads")
+        print(f"  K2 {_label(defines)}: " + ", ".join(cells) + occupancy + f" [{card}]", flush=True)
+    for cname, (x, wl2, dvec, mask, kcfg) in calls:
+        nbytes, flops = k2_row_adjoint_work(x.shape[0], ROWS, kcfg[5], kcfg[6], kcfg[4], mask, kcfg[2])
         b, kind = bound_ms(nbytes, flops)
         print(f"  bound {cname}: {b:.4f} ms ({kind}; {nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)",
               flush=True)

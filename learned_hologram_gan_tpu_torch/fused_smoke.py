@@ -47,8 +47,12 @@ BATCH = 16
 ROWS = COLS = 384
 PAD = 320
 DISTANCES = (4e-4, 7e-4, 1e-3)  # np.linspace(4e-4, 1e-3, 3), generatePOH defaults
-# (name, H = W, Cin, Cout) of two of the full-width UNet's nine blocks
-K5_CASES = (("enc_0", 384, 4, 64), ("dec_1", 192, 256, 128))
+# (name, H = W, Cin, Cout) of the full-width UNet's nine blocks (384^2,
+# base 64, four levels), and two of them for K5's float32 entry
+UNET_BLOCKS = (("enc_0", 384, 4, 64), ("enc_1", 192, 64, 128), ("enc_2", 96, 128, 256),
+               ("enc_3", 48, 256, 512), ("bottleneck", 24, 512, 1024), ("dec_3", 48, 1024, 512),
+               ("dec_2", 96, 512, 256), ("dec_1", 192, 256, 128), ("dec_0", 384, 128, 64))
+K5_CASES = (UNET_BLOCKS[0], UNET_BLOCKS[7])
 # the training focal stack: trainingModel.py's 20 distances, batch 4
 K4_BATCH, K4_DISTANCES = 4, np.linspace(-4e-4, 0.0, 21)[:-1]
 WARMUP, REPS = 2, 3

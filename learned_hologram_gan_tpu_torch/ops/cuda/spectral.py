@@ -18,10 +18,10 @@ product of two plans' masks).  The forward on a CUDA tensor:
   3. inverse column transform and column crop (``torch.fft.ifft``).
 
 The backward is the conjugate transpose of that map (K2, the same file,
-its FFTs radix-2 in shared memory on ``csrc/fft_radix2.cuh``):
-column transform of the embedded cotangent, then the adjoint row pass,
-which sums the distances in the spectrum, then the inverse column transform
-and crop (or, with ``from_spectrum``, the full padded spectrum).
+on the same FFT core and plans, with K1's block shapes): column transform
+of the embedded cotangent, then the adjoint row pass, which sums the
+distances in the spectrum, then the inverse column transform and crop (or,
+with ``from_spectrum``, the full padded spectrum).
 
 :func:`propagate_planes_reference` and :func:`propagate_planes_adjoint_reference`
 are the plain versions.  :func:`propagate_planes` is a
@@ -49,30 +49,21 @@ KERNEL_NAME = "k1_asm_propagate"
 Cfg = Tuple[float, bool, bool, bool, int, int, int, Optional[Tuple[int, int, int, int]]]
 
 
-def _pick_tc(rp: int, cp: int) -> Optional[int]:
-    # K2's tile: the widest that divides cp and whose two (rp, tc) complex
-    # buffers and rp / 2 twiddles fit; at rp = 1024 a 4-column block takes
-    # 67 KB (three share an SM)
-    for tc in (4, 2, 1):
-        if cp % tc == 0 and (2 * rp * tc + rp // 2) * 8 <= fft_plan.SMEM_LIMIT:
-            return tc
-    return None
-
-
 def _pick_cpb(plan: fft_plan.FftPlan, keep_spectrum: bool) -> Optional[int]:
-    """K1's columns per block: at least 8 (64-byte row segments).  A column
-    takes its exchange, which also holds S * H (at least rp values), and
-    its spectrum when D > 1.  At rp = 1024: 8 columns, 256 threads, 68 KB;
-    with the spectrum kept 4 columns, 67 KB."""
+    """K1's and K2's columns per block: at least 8 (64-byte row segments).
+    A column takes its exchange, which also holds the thread-private slots
+    of S * H (at least rp values), and a second array of rp values when
+    D > 1 (K1's spectrum, K2's distance sum).  At rp = 1024: 8 columns, 256
+    threads, 68 KB; with the second array 4 columns, 67 KB."""
     values = max(plan.buffer, plan.n) + (plan.n if keep_spectrum else 0)
     return fft_plan.lines_per_block(plan, 8, values * 8)
 
 
 def supported(rp: int, cp: int) -> bool:
     """True if K1 and K2 handle a (rp, cp) padded grid: rp a power of two
-    whose K2 tile fits in shared memory for some width tc | cp, and whose K1
-    block fits with the spectrum kept (every mode then fits)."""
-    if rp < 2 or rp & (rp - 1) or rp > fft_plan.MAX_LENGTH or _pick_tc(rp, cp) is None:
+    whose block fits with the second array kept (every mode then fits), any
+    cp (a ragged last block is masked)."""
+    if rp < 2 or rp & (rp - 1) or rp > fft_plan.MAX_LENGTH:
         return False
     return _pick_cpb(fft_plan.make_plan(rp), True) is not None
 
@@ -143,33 +134,18 @@ def propagate_planes_adjoint_reference(gr, gi, wl2, dists, mask, cfg: Cfg):
 
 
 @functools.lru_cache(maxsize=None)
-def _twiddles(rp: int, device: torch.device) -> torch.Tensor:
-    """K2's (rp/2,) complex64 table of exp(2*pi*i*k/rp), computed in float64."""
-    k = np.arange(rp // 2, dtype=np.float64)
-    tw = np.exp(2j * np.pi * k / rp).astype(np.complex64)
-    return torch.from_numpy(tw).to(device)
-
-
-@functools.lru_cache(maxsize=None)
 def _kernel_fns(defines: Tuple[str, ...] = ()):
     from .build import load_library
 
     lib = load_library(KERNEL_NAME, defines)
-    k1 = lib.k1_asm_row_pass
-    k1.argtypes = (
-        [ctypes.c_void_p] * 7
-        + [ctypes.c_int] * 9
-        + [ctypes.c_float] * 3
-        + [ctypes.c_int, ctypes.c_void_p]
-    )
-    k2 = lib.k2_asm_row_adjoint
-    k2.argtypes = (
-        [ctypes.c_void_p] * 6
-        + [ctypes.c_int] * 9
-        + [ctypes.c_float] * 3
-        + [ctypes.c_int, ctypes.c_void_p]
-    )
-    for fn in (k1, k2):
+    k1, k2 = lib.k1_asm_row_pass, lib.k2_asm_row_adjoint
+    for fn in (k1, k2):  # the same arguments
+        fn.argtypes = (
+            [ctypes.c_void_p] * 7
+            + [ctypes.c_int] * 9
+            + [ctypes.c_float] * 3
+            + [ctypes.c_int, ctypes.c_void_p]
+        )
         fn.restype = ctypes.c_int
     err = lib.k1_error_string
     err.argtypes = [ctypes.c_int]
@@ -211,19 +187,11 @@ def _launch(adjoint: bool, x: torch.Tensor, wl2, dists, mask, cfg: Cfg) -> torch
             raise ValueError("propagate_planes: all tensors must be on one device")
     out = torch.empty(out_shape, dtype=torch.complex64, device=x.device)
     k1, k2, err_str = _kernel_fns()
-    if adjoint:
-        tile = _pick_tc(rp, cp)
-        tables = (_twiddles(rp, x.device).data_ptr(),)
-        fn = k2
-    else:
-        plan, ints, tw = fft_plan.device_plan(rp, x.device)
-        tile = _pick_cpb(plan, num_d > 1)
-        tables = (tw.data_ptr(), ints.ctypes.data)
-        fn = k1
-    code = fn(
+    plan, ints, tw = fft_plan.device_plan(rp, x.device)
+    code = (k2 if adjoint else k1)(
         x.data_ptr(), out.data_ptr(), wl2.data_ptr(), dists.data_ptr(),
-        None if mask is None else mask.data_ptr(), *tables,
-        p, rows, cp, rp, r0, num_d, tile, int(from_spectrum), int(per_plane),
+        None if mask is None else mask.data_ptr(), tw.data_ptr(), ints.ctypes.data,
+        p, rows, cp, rp, r0, num_d, _pick_cpb(plan, num_d > 1), int(from_spectrum), int(per_plane),
         float(np.float32(1.0 / (rp * pitch))),
         float(np.float32(1.0 / (cp * pitch))),
         float(np.float32(2.0 * np.pi if conj_h else -2.0 * np.pi)),

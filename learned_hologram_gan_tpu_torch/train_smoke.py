@@ -3,7 +3,9 @@
 * :func:`training_kernels`: K1 in its training modes, K2 and K3 at the
   train step's full-width shapes, each against its plain version (and K2
   against ``torch.autograd`` through K1's plain version), with its time,
-  the plain version's, a one-call library yardstick and the card's bound;
+  the plain version's, a one-call library yardstick and the card's bound
+  (K1's row pass and K2's row adjoint also alone, against the bound of
+  their own work);
 * :func:`two_h_kernels`: K1 and K2 in the two-H hat path's mode (field
   input, a distance per plane, a caller's product mask) at the same shapes,
   measured the same way;
@@ -39,6 +41,7 @@ from .utils.cuda_measure import (
     fft_flops,
     k1_row_pass_work,
     k1_work,
+    k2_row_adjoint_work,
     profile_kernels,
     spectral_support,
 )
@@ -117,7 +120,9 @@ def _add_k2(entry, card, rng, name, args, library, nbytes, flops):
     entry.add(name, card, err, lambda: spectral._adjoint_cuda(gr, gi, wl2, dvec, mask, kcfg),
               lambda: spectral.propagate_planes_adjoint_reference(gr, gi, wl2, dvec, mask, kcfg),
               lambda: library(lib_in), lambda: spectral.row_adjoint(x, wl2, dvec, mask, kcfg),
-              nbytes, flops)
+              nbytes, flops,
+              kernel_work=k2_row_adjoint_work(fr.shape[0], ROWS, kcfg[5], kcfg[6], kcfg[4], mask,
+                                              kcfg[2]))
 
 
 def training_kernels(card):

@@ -99,6 +99,25 @@ def k1_row_pass_work(p, rows, rp, cp, num_d, mask, from_spectrum):
     return in_bytes + out_bytes, flops
 
 
+def k2_row_adjoint_work(p, rows, rp, cp, num_d, mask, from_spectrum):
+    """Bytes and operations of K2's row adjoint alone (``spectral.row_adjoint``):
+    its column-transformed (P, D, rows, cp) cotangent, wl2, dists and the
+    mask read once; its result written once, (P, rows, cp), or the full
+    (P, rp, cp) spectrum from a spectrum (0 outside the mask, but written);
+    the forward row FFT per plane, distance and column, the inverse row FFT
+    per plane and column (none from a spectrum), and per distance on the
+    mask's support H, the complex multiply and the mask, counted as in
+    :func:`k1_work`, and the sum's complex add past the first distance."""
+    masked = mask is not None
+    support = spectral_support(mask, rp, cp)
+    in_bytes = (2 * p * num_d * rows * cp * 4 + p * 4 + (p if num_d == 1 else num_d) * 4
+                + (rp * cp * 4 if masked else 0))
+    out_bytes = 2 * p * (rp if from_spectrum else rows) * cp * 4
+    flops = (fft_flops(rp, p * cp * (num_d + (0 if from_spectrum else 1)))
+             + p * num_d * support * (8 + 6 + (2 if masked else 0)) + p * (num_d - 1) * support * 2)
+    return in_bytes + out_bytes, flops
+
+
 def k1_bound_ms(p, rows, cols, rp, cp, num_d, mask):
     """Least time for :func:`k1_work`'s work on the card, and its kind."""
     return bound_ms(*k1_work(p, rows, cols, rp, cp, num_d, mask))

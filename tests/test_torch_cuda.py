@@ -55,6 +55,7 @@ def assert_rel_close(kr, ki, rr, ri):
 MODES = {
     "backward": (True, 1, False, False, False),
     "stack": (False, 3, False, False, False),
+    "stack_d20": (False, 20, False, False, False),
     "from_spectrum": (False, 3, True, False, False),
     "from_spectrum_per_plane": (False, 1, True, True, False),
     "field_per_plane_mask_override": (False, 1, False, True, True),
@@ -81,7 +82,9 @@ def _k1_case(device, rows, cols, pad, batch, mode, seed=0):
 
 
 GRIDS = [
-    (24, 32, 4, 2),      # 32 x 40 grid: one FFT pass in K1, K2's tile width 2
+    (24, 32, 4, 2),      # 32 x 40 grid: one FFT pass
+    (24, 25, 4, 2),      # 32 x 33: an odd column count, a ragged last block of columns
+    (40, 23, 12, 1),     # 64 x 47: two passes, ragged columns
     (48, 48, 8, 2),      # 64 x 64
     (384, 384, 320, 1),  # the main path's 1024 x 1024 grid
     (768, 768, 640, 1),  # 2048 x 2048: three passes, two exchanges in K1
@@ -97,6 +100,24 @@ def test_k1_matches_plain_version(device, rows, cols, pad, batch, mode):
     torch.cuda.synchronize()
     assert spectral.row_pass.launches == before + 1
     assert_rel_close(kr, ki, *spectral.propagate_planes_reference(*args))
+
+
+@pytest.mark.parametrize("rows,cols,pad,batch", GRIDS)
+@pytest.mark.parametrize("mode", list(MODES))
+def test_k2_matches_plain_version(device, rows, cols, pad, batch, mode):
+    """K2 through its wrapper (column transforms, the row adjoint, the
+    inverse column transform or the scaled spectrum) against the plain
+    adjoint, on a seeded cotangent."""
+    fr, fi, wl2, dists, mask, cfg = _k1_case(device, rows, cols, pad, batch, mode)
+    rng = np.random.default_rng(2)
+    shape = (fr.shape[0], cfg[4], rows, cols)
+    gr = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+    gi = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+    before = spectral.row_adjoint.launches
+    kr, ki = spectral._adjoint_cuda(gr, gi, wl2, dists, mask, cfg)
+    torch.cuda.synchronize()
+    assert spectral.row_adjoint.launches == before + 1
+    assert_rel_close(kr, ki, *spectral.propagate_planes_adjoint_reference(gr, gi, wl2, dists, mask, cfg))
 
 
 @pytest.mark.parametrize("rows,cols,pad,batch", GRIDS)
@@ -277,6 +298,37 @@ def test_k5_bf16_matches_plain_version(device, shape):
     torch.cuda.synchronize()
     assert conv_block.fused_residual_block.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (b, h, w, cout)
+    want = conv_block.residual_block_reference(x, *args).float()
+    err = (got.float() - want).abs().flatten() / want.abs().max()
+    assert float(err.max()) <= fused_smoke.K5_BF16_MAX_REL_TOL
+    assert float(err.sort().values[int(0.999 * (err.numel() - 1))]) <= fused_smoke.K5_BF16_P999_REL_TOL
+
+
+# (B, H, W, Cin, Cout): the full-width UNet's nine blocks at batch 2, then
+# the small fused generator's (card_check.FUSED: 48^2, base 4), whose conv2
+# segments of 9 x 32 and 9 x 16 values end off a 64-value K atom
+K5_BF16_UNET_SHAPES = ([(2, hw, hw, cin, cout) for _, hw, cin, cout in fused_smoke.UNET_BLOCKS]
+                       + [(2, 48 >> i, 48 >> i, max(4, 2 << i), 4 << i) for i in range(4)]
+                       + [(2, 3, 3, 32, 64)]
+                       + [(2, 48 >> i, 48 >> i, 8 << i, 4 << i) for i in reversed(range(4))])
+
+
+@pytest.mark.parametrize("shape", K5_BF16_UNET_SHAPES, ids=str)
+def test_k5_bf16_unet_blocks_match_plain_version(device, shape):
+    """K5's bfloat16 entry at the UNet's block shapes, on a non-negative
+    input (as the blocks see after a ReLU)."""
+    b, hw, _, cin, cout = shape
+    rng = np.random.default_rng(6)
+
+    def draw(*s, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(s)).astype(np.float32)).to(device)
+
+    x = draw(b, hw, hw, cin).abs().bfloat16()
+    args = (draw(3, 3, cin, cout, scale=(9 * cin) ** -0.5), draw(cout, scale=0.1),
+            draw(3, 3, cout, cout, scale=(9 * cout) ** -0.5), draw(cout, scale=0.1),
+            draw(cin, cout, scale=cin ** -0.5), draw(cout, scale=0.1))
+    got = conv_block.fused_residual_block(x, *args)
+    torch.cuda.synchronize()
     want = conv_block.residual_block_reference(x, *args).float()
     err = (got.float() - want).abs().flatten() / want.abs().max()
     assert float(err.max()) <= fused_smoke.K5_BF16_MAX_REL_TOL

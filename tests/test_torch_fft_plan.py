@@ -9,24 +9,33 @@ twiddles, its register DFT (radix-2 decimation in frequency with the
 kernel's float32 constants) and the stores.  They hold the result to
 ``np.fft`` at every length the kernels take, K1's row pass (loads of the
 nonzero rows, the mask and H at the spectral row each register holds, the
-inverse as conj(F(conj(.))), the crop) to the port's plain version, the
-exchanges to a model of Hopper's shared-memory banks (8-byte accesses: a
-half-warp's 16 lanes must fall on 16 distinct bank pairs), and the
-wrappers' predicates to the lengths and grids the radix-2 kernels took.
+inverse as conj(F(conj(.))), the crop) and K2's row adjoint (the forward
+transform of each distance's nonzero rows, conj(H) * mask, the distance
+sum, then the inverse and crop or the scaled spectrum) to the port's plain
+versions and to the JAX package's (``jax.vjp`` of its ``propagate_planes``
+in Pallas interpret mode), the exchanges to a model of Hopper's
+shared-memory banks (8-byte accesses: a half-warp's 16 lanes must fall on
+16 distinct bank pairs), and the wrappers' predicates to the lengths and
+grids the radix-2 kernels took.
 
 Tolerance: float32 FFTs of up to 16384 points against float64 ``np.fft``,
 <= 1e-5 of max |ref| (the rounding grows as log2 n, ~1e-6 here); K1's row
-pass against its plain version at the card tests' bounds (1e-4 at worst,
-1e-5 at the 99.9th percentile).
+pass and K2's row adjoint against their plain versions at the card tests'
+bounds (1e-4 at worst, 1e-5 at the 99.9th percentile); K2 against JAX at
+``tests/test_torch_ops.py``'s 5e-5 of max |grad| (the JAX side's
+split-bf16 DFT GEMMs).
 """
 
 import re
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from learned_hologram_gan_tpu.ops.pallas import spectral as jspectral
 from learned_hologram_gan_tpu_torch.config import OpticsConfig
 from learned_hologram_gan_tpu_torch.ops import asm
 from learned_hologram_gan_tpu_torch.ops.cuda import fft, fft_plan, spectral
@@ -208,8 +217,10 @@ def _layouts(plan):
     out = [("K3 axis -1", fft._pick_lpb(plan, False), False),
            ("K3 axis -2", fft._pick_lpb(plan, True), True)]
     if spectral.supported(plan.n, 8):
-        out += [("K1", spectral._pick_cpb(plan, False), True),
-                ("K1 D > 1", spectral._pick_cpb(plan, True), True)]
+        # K2 launches K1's block shapes (its distance sum takes the second
+        # array where K1 keeps the spectrum)
+        out += [(f"{k} {label}", spectral._pick_cpb(plan, keep), True)
+                for k in ("K1", "K2") for label, keep in (("D = 1", False), ("D > 1", True))]
     return out
 
 
@@ -386,3 +397,116 @@ def test_block_shapes_match_the_wrappers_own_searches(n):
     if n == 1024:
         assert (fft._pick_lpb(plan, False), fft._pick_lpb(plan, True)) == (4, 8)
         assert (spectral._pick_cpb(plan, False), spectral._pick_cpb(plan, True)) == (8, 4)
+
+
+def _emulate_row_adjoint(x, wl2, dists, mask, cfg):
+    """K2's row adjoint on the column-transformed cotangent x (P, D, rows,
+    cp), as the kernel runs it: per plane, column and distance, load the
+    nonzero rows into registers, FFT, then conj(H) * mask at the row each
+    register holds (H with the forward's sign negated; skipped where the
+    mask is 0), summed over the distances; then the sum scaled by 1 / rp
+    (from_spectrum, (P, rp, cp)) or conj(F(conj(sum))) / rp with the crop
+    window stored ((P, rows, cp))."""
+    pitch, conj_h, from_spectrum, per_plane, num_d, rp, cp, r0, rows, _, _ = spectral._unpack(cfg)
+    plan = fft_plan.make_plan(rp)
+    k = np.arange(plan.threads)[:, None] + plan.threads * np.arange(plan.elems)[None, :]
+    p_count = x.shape[0]
+    f32 = np.float32
+    kr = np.where(k >= (rp + 1) // 2, k - rp, k).astype(f32)
+    col = np.tile(np.arange(cp), p_count)
+    kc = np.where(col >= (cp + 1) // 2, col - cp, col).astype(f32)
+    fx = kr * f32(1.0 / (rp * pitch))
+    fy = kc * f32(1.0 / (cp * pitch))
+    sq = (fx * fx)[None] + (fy * fy)[:, None, None]
+    wl2_line = np.repeat(wl2.reshape(-1), cp)[:, None, None]
+    w = np.sqrt(np.maximum(wl2_line - sq, f32(0)))
+    sign = f32(-2 * np.pi if conj_h else 2 * np.pi)  # the forward's, negated
+    m = np.ones_like(w) if mask is None else np.tile(mask.T, (p_count, 1))[:, k]
+    inside = (k >= r0) & (k < r0 + rows)
+    acc = np.zeros((p_count * cp,) + k.shape, dtype=np.complex64)
+    for d in range(num_d):
+        lines = x[:, d].transpose(0, 2, 1).reshape(p_count * cp, rows)
+        v = np.where(inside, lines[:, np.clip(k - r0, 0, rows - 1)], 0)
+        v = emulate_line_fft(v, plan)
+        z = np.repeat(dists.reshape(-1), cp)[:, None, None] if per_plane else dists.reshape(-1)[d]
+        theta = (sign * f32(z)) * w
+        h = (np.cos(theta) + 1j * np.sin(theta)).astype(np.complex64)
+        if mask is not None:
+            h = (h.real * m + 1j * (h.imag * m)).astype(np.complex64)
+        acc = acc + np.where(m != 0, v * h, 0).astype(np.complex64)
+    scale = f32(1.0 / rp)
+    if from_spectrum:
+        out = np.zeros((p_count, rp, cp), dtype=np.complex64)
+        y = acc * scale
+        for line in range(p_count * cp):
+            p, c = divmod(line, cp)
+            out[p, k.reshape(-1), c] = y[line].reshape(-1)
+        return out
+    y = np.conj(emulate_line_fft(np.conj(acc), plan)) * scale
+    out = np.zeros((p_count, rows, cp), dtype=np.complex64)
+    for line in range(p_count * cp):
+        p, c = divmod(line, cp)
+        out[p, k[inside] - r0, c] = y[line][inside]
+    return out
+
+
+# (conj_h, num_d, from_spectrum, per_plane, mask): every mode K2 runs:
+# AP2POH's conj(H) step (no mask); field input with the plan's mask at 1,
+# 3 and 20 distances; the train step's from_spectrum + per_plane; the two-H
+# hat path's field + per_plane with a caller's fractional mask
+K2_MODES = {
+    "conj_h": (True, 1, False, False, None),
+    "field_d1": (False, 1, False, False, "plan"),
+    "field_d3": (False, 3, False, False, "plan"),
+    "field_d20": (False, 20, False, False, "plan"),
+    "from_spectrum_per_plane": (False, 1, True, True, "plan"),
+    "field_per_plane_fractional_mask": (False, 1, False, True, "override"),
+}
+
+
+@pytest.mark.parametrize("mode", list(K2_MODES))
+@pytest.mark.parametrize("rows,cols,pad", [(24, 32, 4), (40, 23, 12)])
+def test_k2_row_adjoint_emulation_matches_plain_version_and_jax(mode, rows, cols, pad):
+    """K2's index arithmetic in every mode, on a 32-row grid (one pass) and
+    a 64-row grid of 47 columns (two passes; a column count no block of 8
+    divides), through the wrapper's column transforms, against the plain
+    adjoint and against jax.vjp of the JAX package's propagate_planes."""
+    conj_h, num_d, from_spectrum, per_plane, mask_kind = K2_MODES[mode]
+    optics = OpticsConfig(rows=rows, cols=cols, pad_size=pad, filter_radius_coefficient=0.45)
+    plan = asm.make_plan(optics, distances=np.linspace(-4e-4, 1e-3, 3 if per_plane else num_d),
+                         device="cpu")
+    rng = np.random.default_rng(11)
+    batch = 2
+    rp, cp = optics.padded_rows, optics.padded_cols
+    shape = (batch, 3) + ((rp, cp) if from_spectrum else (rows, cols))
+    g = torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64))
+    dists = plan.distances[torch.arange(batch) % 3] if per_plane else plan.distances
+    mask = None
+    if mask_kind == "override":
+        mask = plan.mask * torch.from_numpy(rng.uniform(0.5, 1.0, (rp, cp)).astype(np.float32))
+    fr, fi, wl2, dvec, m, cfg = asm.fused_args(
+        plan, g, dists, conj_h=conj_h, from_spectrum=from_spectrum, per_plane=per_plane,
+        use_mask=mask_kind is not None, mask_override=mask)
+    _, _, _, _, _, _, _, r0, crop_rows, c0, crop_cols = spectral._unpack(cfg)
+    gshape = (fr.shape[0], num_d, rows, cols)
+    gr = torch.from_numpy(rng.standard_normal(gshape).astype(np.float32))
+    gi = torch.from_numpy(rng.standard_normal(gshape).astype(np.float32))
+    # the wrapper around K2 (spectral._adjoint_cuda): column transform of
+    # the embedded cotangent, the row adjoint, then / cp or the inverse
+    # column transform and crop
+    x = torch.fft.fft(torch.nn.functional.pad(torch.complex(gr, gi), (c0, cp - crop_cols - c0)), dim=-1)
+    y = torch.from_numpy(_emulate_row_adjoint(x.numpy(), wl2.numpy(), dvec.numpy(),
+                                              None if m is None else m.numpy(), cfg))
+    y = y / cp if from_spectrum else torch.fft.ifft(y, dim=-1)[..., c0:c0 + crop_cols]
+    rr, ri = spectral.propagate_planes_adjoint_reference(gr, gi, wl2, dvec, m, cfg)
+    err = torch.sqrt((y.real - rr) ** 2 + (y.imag - ri) ** 2).flatten()
+    rel = err / torch.sqrt(rr**2 + ri**2).max()
+    assert float(rel.max()) <= 1e-4
+    assert float(rel.sort().values[int(0.999 * (rel.numel() - 1))]) <= 1e-5
+
+    consts = [None if a is None else jnp.asarray(a.numpy()) for a in (wl2, dvec, m)]
+    _, vjp = jax.vjp(lambda a, b: jspectral.propagate_planes(a, b, *consts, cfg),
+                     jnp.asarray(fr.numpy()), jnp.asarray(fi.numpy()))
+    jdr, jdi = jax.jit(vjp)((jnp.asarray(gr.numpy()), jnp.asarray(gi.numpy())))
+    want = np.asarray(jdr) + 1j * np.asarray(jdi)
+    assert np.max(np.abs(y.numpy() - want)) / np.abs(want).max() <= 5e-5

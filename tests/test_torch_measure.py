@@ -93,6 +93,18 @@ def test_ablation_builds_name_macros_the_sources_define():
                 assert f"#ifdef {d}" in src
 
 
+def test_k5_ablation_builds_name_macros_the_source_reads():
+    """The same for K5's ablation builds, whose macros switch a part of
+    the bfloat16 kernel off (#ifdef) or drop it (#ifndef)."""
+    from learned_hologram_gan_tpu_torch import k5_ablation
+
+    src = open(spectral.__file__.rsplit("/ops/", 1)[0] + "/csrc/k5_residual_block.cu").read()
+    macros = {d for defines in k5_ablation.BUILDS for d in defines}
+    assert macros == {"LHG_ABLATE_MMA", "LHG_ABLATE_A", "LHG_ABLATE_STORE"}
+    for d in macros:
+        assert f"#ifdef {d}" in src or f"#ifndef {d}" in src
+
+
 def test_build_keeps_the_log_of_a_cached_library(tmp_path, monkeypatch):
     """A second build of the same source, headers and flags loads nothing
     new and still returns ptxas' report; defines give another library and
