@@ -13,7 +13,9 @@ configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
 
   1. environment: Python, torch, CUDA, nvcc, the card's name and power limit;
   2. build every kernel from ``csrc/`` with nvcc, one process per source,
-     all started together (timed);
+     all started together (timed), and print ptxas' registers and spills
+     of the redesigned kernels (K1's row pass, K2, K5 in both types at
+     each tile width);
   3. each kernel (K1 in its inference and training modes, the two-H hat
      path's included, K2, K3) against its plain PyTorch version at the
      paths' shapes, with its time, the plain version's, a library yardstick
@@ -33,8 +35,11 @@ configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
      ``--two_h_hat``, ``--critic_batching separate`` and ``--critic_batching
      full`` (phases 3 and 5 of the training slice live in
      ``learned_hologram_gan_tpu_torch/train_smoke.py``);
-  6. the fused eval path (``generator_apply_fused``, K5 on every block)
-     against the module path, K5 and K4 against their plain versions
+  6. the fused eval path (``generator_apply_fused``, K5 on every block:
+     float32 as three TF32 products a product on wgmma) against the module
+     path, K5 and K4 against their plain versions, then K5 on all nine
+     blocks against its plain version (the cuDNN chain, TF32 off), block by
+     block with TFLOP/s and its bound
      (``learned_hologram_gan_tpu_torch/fused_smoke.py``);
   7. bfloat16 inference at bench.py's configuration: ``generate_poh.main
      --dtype bfloat16``, then the batch-16 pipeline timed as bench.py times
@@ -400,11 +405,14 @@ def main():
                     print(line.strip(), flush=True)
         # the redesigned kernels' registers and spills, by name
         registers = {}
-        for label, lib, entry in (
+        k5 = [(f"K5 {label}, {bn} channels a tile", conv_block.KERNEL_NAME,
+               f"conv_wgmma_kernelI{mangled}Li{bn}E")
+              for label, mangled, widths in (("bf16 wgmma", "13__nv_bfloat16", (256, 128, 64)),
+                                             ("f32 3xTF32 wgmma", "f", (128, 64)))
+              for bn in widths]
+        for label, lib, entry in [
                 ("K1 row pass (E = 32)", spectral.KERNEL_NAME, "asm_row_pass_kernelILi32E"),
-                ("K2 row adjoint (E = 32)", spectral.KERNEL_NAME, "asm_row_adjoint_kernelILi32E"),
-                ("K5 bf16 wgmma, 128 channels a tile", conv_block.KERNEL_NAME, "conv_wgmma_kernelILi128E"),
-                ("K5 bf16 wgmma, 64 channels a tile", conv_block.KERNEL_NAME, "conv_wgmma_kernelILi64E")):
+                ("K2 row adjoint (E = 32)", spectral.KERNEL_NAME, "asm_row_adjoint_kernelILi32E")] + k5:
             report = fft_ablation._ptxas(results[lib].log, entry)
             if report is None:
                 raise AssertionError(f"ptxas reported nothing for {entry}")
@@ -445,7 +453,7 @@ def main():
     with Phase("fused eval path: K5 and K4 vs plain versions, then the path at batch 16"):
         k5 = fused_smoke.k5_kernel(card)
         k4 = fused_smoke.k4_kernel(card)
-        k5_launches, k4_fused, _ = fused_smoke.fused_path(card)
+        k5_launches, k4_fused, k5_unet = fused_smoke.fused_path(card)
     k4_launches += k4_fused
 
     with Phase("bf16 main path: generate_poh --dtype bfloat16, then bench.py's configuration"):
@@ -480,8 +488,10 @@ def main():
     kernels = [k1, train_kernels["k1_train"], train_kernels["k2"], train_kernels["k3"],
                train_kernels["k1_two_h"], train_kernels["k2_two_h"],
                dict(k4.json(), launches=k4_launches), dict(k5.json(), launches=k5_launches),
+               dict(k5_unet.json(), launches=k5_launches,
+                    registers={k: v for k, v in registers.items() if k.startswith("K5 f32")}),
                dict(k5_bf16.json(), launches=k5_bf16_launches,
-                    registers={k: v for k, v in registers.items() if k.startswith("K5")})]
+                    registers={k: v for k, v in registers.items() if k.startswith("K5 bf16")})]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,22 +3,24 @@
 //   out = relu( conv3x3(y1, w2) + b2 + conv1x1(x, w3) + b3 ),
 //   y1  = relu( conv3x3(x, w1) + b1 ),
 //
-// NHWC, SAME padding, stride 1, float32 accumulation, in two element types:
-// float32 (no TF32, no tensor cores), and bfloat16 for x, the weights, y1
-// and the output, with float32 biases.  In bfloat16 y1 is rounded once to
-// bfloat16 (round to nearest even) as it is stored, and the output once,
-// after the shortcut add and the final ReLU: the JAX kernel's roundings
-// (conv_block.py:138, :169).  It replaces
-// learned_hologram_gan_tpu/ops/pallas/conv_block.py:_block_kernel (the
-// pl.pallas_call at conv_block.py:223), as nn/fused_unet.py:_block_eval
+// NHWC, SAME padding, stride 1, float32 accumulation, in two element types,
+// both as an implicit GEMM on the tensor cores (wgmma): float32, its
+// products taken to near-float32 precision as three TF32 products each
+// (below), and bfloat16 for x, the weights, y1 and the output, with float32
+// biases.  In bfloat16 y1 is rounded once to bfloat16 (round to nearest
+// even) as it is stored, and the output once, after the shortcut add and
+// the final ReLU: the JAX kernel's roundings (conv_block.py:138, :169).  It
+// replaces learned_hologram_gan_tpu/ops/pallas/conv_block.py:_block_kernel
+// (the pl.pallas_call at conv_block.py:223), as nn/fused_unet.py:_block_eval
 // calls it.
 //
 // What bounds it on this card: operations.  The full-width UNet (384^2,
 // base 64, four levels) does ~219 GFLOP per image in its nine blocks,
-// 2*H*W*(9*Cin*C + 9*C*C + Cin*C) each, so a batch of 16 is ~3.5 TFLOP:
-// >= 52 ms at 67 TFLOP/s of float32 outside the tensor cores, >= 3.5 ms at
-// 989 TFLOP/s of bfloat16 on them.  Its activations, ~1.3 GB at batch 16 in
-// float32, take < 0.5 ms at 3.35 TB/s.
+// 2*H*W*(9*Cin*C + 9*C*C + Cin*C) each, so a batch of 16 is ~3.5 TFLOP.  In
+// float32 the tensor cores take three TF32 passes of it: >= 21.3 ms at 495
+// TFLOP/s (float32 FMAs outside the tensor cores could not pass 52 ms at 67
+// TFLOP/s).  In bfloat16: >= 3.5 ms at 989 TFLOP/s.  Its activations, ~1.3
+// GB at batch 16 in float32, take < 0.5 ms at 3.35 TB/s.
 //
 // Two launches per block in both types.  The first writes y1 = relu(conv1
 // + b1) to a scratch buffer the wrapper allocates; the second reads y1
@@ -29,24 +31,85 @@
 // (in bfloat16 2 x 302 MB at 384^2, ~0.2 ms; at 48^2 and below it stays in
 // the 50 MB L2), so the split stays.
 //
-// float32 (a first, simple kernel): a direct 3x3 convolution tiled in
-// shared memory, as an implicit GEMM over (pixels) x (output channels) x
-// (9 taps x input channels).  A block owns an 8 x 32 tile of output pixels
-// of one image and 64 output channels, 256 threads, and the input channels
-// go through shared memory 16 at a time (the chunk of input with its
-// 1-pixel halo, zeros outside the image as SAME padding, and the chunk's
-// weights for the block's 64 channels).  The 32 lanes of a warp own 8
-// neighbouring columns each (4 lanes per tile row), the 8 warps own 8
-// output channels each, so a weight read from shared memory is a broadcast
-// and each thread keeps 8 x 8 accumulators in registers.  The halo row
-// stride is odd (35), so the lanes' rows start in distinct banks.  Per
-// channel a thread reads 10 inputs per kernel row and reuses them over the
-// 3 column taps: 30 input and 18 vector weight reads for 576 FMAs.  Every
-// block shape of the UNet goes through the same loop; partial tiles and
-// channel chunks are masked.
+// ---- The implicit GEMM on wgmma --------------------------------------------
 //
-// bfloat16: an implicit GEMM on wgmma, fed by a ring of asynchronous
-// copies (the section below says how).
+// GEMM view of one convolution: M = the B * H * W output pixels in their
+// flattened (b, y, x) order, N = the output channels, K = the taps times
+// the input channels of one or two segments (conv2 appends the 1x1
+// shortcut's K to its own, so both sum into one set of accumulators).  A
+// K atom is one 128-byte row: BK = 64 bfloat16 or 32 float32 values.  A
+// segment's K runs chunk by chunk, tap by tap, channel by channel:
+// kk = chunk * kchunk + tap * width + ci for channel chunk * width + ci,
+// where width is BK channels, or all of them when there are fewer (enc_0's
+// 4: the K step then spans taps, 9 * 4 = 36 values padded to 48 in
+// bfloat16, to 40 in float32), and kchunk = taps * width padded to a
+// multiple of one wgmma's K (32 bytes: 16 bfloat16, 8 TF32).  The wrapper
+// lays the weights out as (cout, kseg) matrices in that order
+// (ops/cuda/conv_block.py:gemm_weights) and picks the tile
+// (conv_block.py:tiling); the CPU tests (tests/test_torch_k5_tiles.py)
+// emulate this K order, the loads' zero fill, the shared-memory layout, the
+// TF32 fragment and the split.
+//
+// A block of 384 threads is one producer warpgroup and two consumer
+// warpgroups, persistent over tiles of 128 pixels x BN channels (BN = 64,
+// 128 or, in bfloat16, 256: the widest that the output channels fill, as
+// a wider tile reads each pixel's inputs fewer times).  Through a ring of stages in 192 KB of
+// shared memory, each stage with an mbarrier that fills and one that empties:
+//   * the producer fills a stage with the A tile (128 pixels x BK K) by
+//     cp.async, 16 bytes a copy where the channels allow it (fewer bytes
+//     where a segment's channel count is not a multiple of 16 bytes' worth;
+//     2-byte loads when a bfloat16 count is odd), zero-filled (src-size 0)
+//     outside the image (SAME padding), past the channels and past the last
+//     pixel, each copy landing 128-byte swizzled: 16-byte chunk j of row r
+//     at r * 128 + (j ^ (r % 8)) * 16, so that element (r, k) lies at
+//     r * 128 + ((k / V) ^ (r % 8)) * 16 + (k % V) * size with V = 8
+//     bfloat16 or 4 float32 values a chunk: the layout the wgmma
+//     descriptors name.  The B atoms (BN channels x BK K each) come in one
+//     bulk copy (cp.async.bulk, counted on the stage's barrier in bytes):
+//     the wrapper lays the weights out atom by atom, already swizzled;
+//   * each consumer warpgroup runs wgmma on its 64 rows, float32
+//     accumulators in registers, then releases the stage;
+//   * the epilogue adds the biases, applies the ReLU and stores (in
+//     bfloat16 rounded once, 16 bytes a lane: the lanes of a quad trade
+//     their channel pairs by shuffles; in float32 8 bytes a lane, a quad's
+//     32 contiguous bytes); meanwhile the producer fills the next tile.
+//
+// bfloat16: A and B from shared memory (descriptors), m64nBNk16, four per
+// atom, one stage's group in flight while the next is awaited.  A stage
+// holds AT atoms of A and of B: two where BN <= 128 and K > 64 (atoms_for),
+// so that a step's products outweigh its handshakes; the ring holds 4
+// stages at BN = 256 (one atom), 3 at 128, 4 at 64 (two atoms).
+//
+// float32, split precision (3xTF32): a TF32 product keeps 10 of float32's
+// 23 mantissa bits, ~5e-4 relative over a sum of thousands of terms, far
+// outside float32's gates.  So each value is split into two TF32 values,
+// x = x_hi + x_lo + O(2^-22 x), hi = rna(x), lo = rna(x - hi), rna being
+// cvt.rna.tf32.f32 (round to nearest, ties away; never the tensor core's
+// own truncation of the low 13 bits, which would bias every product the
+// same way), and x * w = x_hi w_hi + x_hi w_lo + x_lo w_hi + O(2^-22 x w):
+// three wgmma m64nBNk8 per 8 K (lo x B_hi, hi x B_lo, then hi x B_hi), each
+// product exact.  The wrapper splits the weights once per call (B_hi and
+// B_lo, one atom each a stage, in the one bulk copy); the consumers split
+// the activations in registers: each thread reads its A fragment from the
+// stage (rows 64 wg + 16 warp + g and + 8, K tq and tq + 4 of each 8, the
+// m64k8 TF32 fragment) and rounds it into hi and lo.  TF32 takes K-major A
+// and B only, which both are: NHWC puts the channels (K) innermost, and
+// gemm_weights lays B out as (cout, K).
+//   The tensor core adds its products into the accumulators with
+// truncation; over the ~3,600 accumulating wgmma of a 1024-channel block's
+// conv2 that read 1.8e-5 of max |out| at p99.9 on the card, over float32's
+// 1e-5.  So a stage's 12 products go into partial sums of their own (the
+// first with scale-d 0), which round-to-nearest adds then take into the
+// tile's sums: the truncation acts on 32 K of products at a time.  The
+// partial sums double the accumulators, so the tiles are 64 or 128
+// channels wide (at 128: 64 + 64 accumulators and 32 fragment registers
+// outgrow the 168 a thread of 384 gets, and the producer hands registers
+// to the consumers, setmaxnreg 72 and 216).  One atom a stage (12 wgmma
+// already outweigh a handshake): 4 stages at BN = 128 (16 KB of A, 32 KB
+// of B_hi and B_lo), 6 at 64.  The fragment registers are read by the
+// wgmma in flight, so a stage's group is waited for before the next
+// stage's fragment is loaded; the other consumer warpgroup's products fill
+// that gap.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,289 +117,52 @@
 
 namespace {
 
-constexpr int kTileRows = 8;   // output tile: 8 rows
-constexpr int kTileCols = 32;  // x 32 columns
-constexpr int kTileN = 64;     // output channels per block
-constexpr int kChunk = 16;     // input channels per pass through shared memory
-constexpr int kPx = 8;         // neighbouring columns per thread
-constexpr int kCn = 8;         // output channels per thread (one warp's share)
-constexpr int kThreads = 256;
-constexpr int kHaloRows = kTileRows + 2;
-constexpr int kHaloCols = kTileCols + 2;
-constexpr int kRowStride = 35;  // >= kHaloCols and odd
-constexpr int kInFloats = kChunk * kHaloRows * kRowStride;
-constexpr int kWFloats = kChunk * 9 * kTileN;
-constexpr size_t kSmemBytes = (kInFloats + kWFloats) * sizeof(float);
-
-static_assert(kThreads == 32 * (kTileN / kCn), "one warp per channel group");
-static_assert(kTileRows * (kTileCols / kPx) == 32, "one lane per pixel group");
-static_assert(kInFloats % 4 == 0, "weights must start 16-byte aligned");
-
-// One chunk of `c_total`-channel NHWC input `src` (image b already applied)
-// into in_s[c][row][col], rows/cols of the tile's halo (origin y0-1, x0-1).
-// `halo` = 0 loads only the tile itself, at halo coordinates (1, 1) on.
-__device__ __forceinline__ void load_input(float* in_s, const float* src,
-                                           int c_total, int c0, int y0,
-                                           int x0, int h, int w, int halo) {
-  const int rows = halo ? kHaloRows : kTileRows;
-  const int cols = halo ? kHaloCols : kTileCols;
-  const int off = halo ? 0 : 1;
-  for (int i = threadIdx.x; i < kChunk * rows * cols; i += kThreads) {
-    const int c = i % kChunk;
-    const int pos = i / kChunk;
-    const int hr = pos / cols + off;
-    const int hc = pos % cols + off;
-    const int gy = y0 + hr - 1;
-    const int gx = x0 + hc - 1;
-    float v = 0.f;
-    if (c0 + c < c_total && gy >= 0 && gy < h && gx >= 0 && gx < w) {
-      v = src[(static_cast<size_t>(gy) * w + gx) * c_total + c0 + c];
-    }
-    in_s[(c * kHaloRows + hr) * kRowStride + hc] = v;
-  }
-}
-
-// Weights `wt` laid out (taps, c_total, cout) for input channels c0.. and
-// output channels n0..: w_s[(c * taps + tap) * kTileN + n].
-__device__ __forceinline__ void load_weights(float* w_s, const float* wt,
-                                             int taps, int c_total, int c0,
-                                             int cout, int n0) {
-  for (int i = threadIdx.x; i < kChunk * taps * kTileN; i += kThreads) {
-    const int n = i % kTileN;
-    const int rest = i / kTileN;
-    const int c = rest % kChunk;
-    const int tap = rest / kChunk;
-    float v = 0.f;
-    if (c0 + c < c_total && n0 + n < cout) {
-      v = wt[(static_cast<size_t>(tap) * c_total + c0 + c) * cout + n0 + n];
-    }
-    w_s[(c * taps + tap) * kTileN + n] = v;
-  }
-}
-
-__device__ __forceinline__ void fma_row(float (&acc)[kPx][kCn],
-                                        const float* v, const float* wp) {
-  const float4 lo = *reinterpret_cast<const float4*>(wp);
-  const float4 hi = *reinterpret_cast<const float4*>(wp + 4);
-  const float wv[kCn] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-  for (int p = 0; p < kPx; ++p) {
-#pragma unroll
-    for (int k = 0; k < kCn; ++k) acc[p][k] = fmaf(v[p], wv[k], acc[p][k]);
-  }
-}
-
-// out = relu(conv3x3(a, wa) [+ conv1x1(x, wx)] + bias_a [+ bias_x]).
-// a: (B, H, W, ca), wa: (9, ca, cout); x: (B, H, W, cx), wx: (cx, cout).
-// Grid: (tiles of the image, tiles of cout, B).
-template <bool kShortcut>
-__global__ void __launch_bounds__(kThreads, 2)
-    conv3x3_kernel(const float* __restrict__ a, int ca,
-                   const float* __restrict__ wa, const float* __restrict__ x,
-                   int cx, const float* __restrict__ wx,
-                   const float* __restrict__ bias_a,
-                   const float* __restrict__ bias_x, float* __restrict__ out,
-                   int h, int w, int cout, int tiles_x) {
-  extern __shared__ float4 smem4[];
-  float* in_s = reinterpret_cast<float*>(smem4);
-  float* w_s = in_s + kInFloats;
-
-  const int y0 = (blockIdx.x / tiles_x) * kTileRows;
-  const int x0 = (blockIdx.x % tiles_x) * kTileCols;
-  const int n0 = blockIdx.y * kTileN;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int pr = lane >> 2;               // tile row
-  const int pc = (lane & 3) * kPx;        // first tile column
-  const int cn = (threadIdx.x >> 5) * kCn;  // first channel within the tile
-  const size_t img = static_cast<size_t>(h) * w;
-
-  float acc[kPx][kCn];
-#pragma unroll
-  for (int p = 0; p < kPx; ++p) {
-#pragma unroll
-    for (int k = 0; k < kCn; ++k) acc[p][k] = 0.f;
-  }
-
-  const float* a_b = a + b * img * ca;
-  for (int c0 = 0; c0 < ca; c0 += kChunk) {
-    __syncthreads();  // the previous chunk has been consumed
-    load_input(in_s, a_b, ca, c0, y0, x0, h, w, 1);
-    load_weights(w_s, wa, 9, ca, c0, cout, n0);
-    __syncthreads();
-    const int cmax = min(kChunk, ca - c0);
-    for (int c = 0; c < cmax; ++c) {
-      const float* in_c = in_s + (c * kHaloRows + pr) * kRowStride + pc;
-      const float* w_c = w_s + c * 9 * kTileN + cn;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        float v[kPx + 2];
-#pragma unroll
-        for (int j = 0; j < kPx + 2; ++j) v[j] = in_c[dy * kRowStride + j];
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          fma_row(acc, v + dx, w_c + (dy * 3 + dx) * kTileN);
-        }
-      }
-    }
-  }
-
-  if (kShortcut) {
-    const float* x_b = x + b * img * cx;
-    for (int c0 = 0; c0 < cx; c0 += kChunk) {
-      __syncthreads();
-      load_input(in_s, x_b, cx, c0, y0, x0, h, w, 0);
-      load_weights(w_s, wx, 1, cx, c0, cout, n0);
-      __syncthreads();
-      const int cmax = min(kChunk, cx - c0);
-      for (int c = 0; c < cmax; ++c) {
-        const float* in_c =
-            in_s + (c * kHaloRows + pr + 1) * kRowStride + pc + 1;
-        float v[kPx];
-#pragma unroll
-        for (int j = 0; j < kPx; ++j) v[j] = in_c[j];
-        fma_row(acc, v, w_s + c * kTileN + cn);
-      }
-    }
-  }
-
-  float bias[kCn];
-#pragma unroll
-  for (int k = 0; k < kCn; ++k) {
-    const int n = n0 + cn + k;
-    bias[k] = 0.f;
-    if (n < cout) bias[k] = kShortcut ? bias_a[n] + bias_x[n] : bias_a[n];
-  }
-  const int oy = y0 + pr;
-  if (oy >= h) return;
-#pragma unroll
-  for (int p = 0; p < kPx; ++p) {
-    const int ox = x0 + pc + p;
-    if (ox >= w) break;
-    float* o = out + ((b * static_cast<size_t>(h) + oy) * w + ox) * cout + n0 + cn;
-#pragma unroll
-    for (int k = 0; k < kCn; ++k) {
-      if (n0 + cn + k < cout) o[k] = fmaxf(acc[p][k] + bias[k], 0.f);
-    }
-  }
-}
-
-template <bool kShortcut>
-int launch(const float* a, int ca, const float* wa, const float* x, int cx,
-           const float* wx, const float* bias_a, const float* bias_x,
-           float* out, int batch, int h, int w, int cout,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_kernel<kShortcut>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles_x = (w + kTileCols - 1) / kTileCols;
-  const int tiles_y = (h + kTileRows - 1) / kTileRows;
-  const dim3 grid(tiles_x * tiles_y, (cout + kTileN - 1) / kTileN, batch);
-  conv3x3_kernel<kShortcut><<<grid, kThreads, kSmemBytes, stream>>>(
-      a, ca, wa, x, cx, wx, bias_a, bias_x, out, h, w, cout, tiles_x);
-  return static_cast<int>(cudaGetLastError());
-}
-
-
-// One folded residual block in float32: the argument checks, then conv1
-// into y1 and conv2 + the shortcut into out.
-int residual_block_f32(const void* x, const void* w1, const void* b1, const void* w2,
-                       const void* b2, const void* w3, const void* b3, void* y1, void* out,
-                       int batch, int h, int w, int cin, int cout, int device, void* stream) {
-  if (batch < 1 || batch > 65535 || h < 1 || w < 1 || cin < 1 || cout < 1 ||
-      (cout + kTileN - 1) / kTileN > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long tiles = static_cast<long long>((w + kTileCols - 1) / kTileCols) *
-                          ((h + kTileRows - 1) / kTileRows);
-  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xt = static_cast<const float*>(x);
-  float* y1t = static_cast<float*>(y1);
-  int code = launch<false>(xt, cin, static_cast<const float*>(w1), nullptr, 0, nullptr,
-                           static_cast<const float*>(b1), nullptr, y1t, batch, h, w, cout, s);
-  if (code != 0) return code;
-  return launch<true>(y1t, cout, static_cast<const float*>(w2), xt, cin,
-                      static_cast<const float*>(w3), static_cast<const float*>(b2),
-                      static_cast<const float*>(b3), static_cast<float*>(out), batch, h, w,
-                      cout, s);
-}
-
-
-// ---- bfloat16 on the tensor cores: an implicit GEMM with wgmma ------------
-//
-// GEMM view of one convolution: M = the B * H * W output pixels in their
-// flattened (b, y, x) order, N = the output channels, K = the taps times
-// the input channels of one or two segments (conv2 appends the 1x1
-// shortcut's K to its own, so both sum into one set of accumulators).  A
-// segment's K runs chunk by chunk, tap by tap, channel by channel:
-// kk = chunk * kchunk + tap * width + ci for channel chunk * width + ci,
-// where width is 64 channels, or all of them when there are fewer (enc_0's
-// 4: the K step then spans taps, 9 * 4 = 36 values padded to 48), and
-// kchunk = taps * width padded to a multiple of 16.  The wrapper lays the
-// weights out as (cout, kseg) matrices in that order
-// (ops/cuda/conv_block.py:gemm_weights) and picks the tile
-// (conv_block.py:bf16_tiling); the CPU tests emulate this K order, the
-// loads' zero fill and the shared-memory layout.
-//
-// A block of 384 threads is one producer warpgroup and two consumer
-// warpgroups, persistent over tiles of 128 pixels x BN channels (BN = 64,
-// 128 or 256, the widest that the output channels fill).  Through a ring of
-// kStages stages, each with an mbarrier that fills and one that empties:
-//   * the producer fills a stage with the A tile (128 pixels x 64 K) by
-//     cp.async, 16 bytes a copy where the channels allow it (8 or 4 where a
-//     segment's channel count is 4 or 12; 2-byte loads when it is odd),
-//     zero-filled (src-size 0) outside the image (SAME padding), past the
-//     channels and past the last pixel, each copy landing 128-byte
-//     swizzled: element (row, k) at row * 128 + ((k / 8) ^ (row % 8)) * 16 +
-//     (k % 8) * 2, the layout the wgmma descriptors name.  The B atoms (BN
-//     channels x 64 K each) come in one bulk copy (cp.async.bulk, counted
-//     on the stage's barrier in bytes): the wrapper lays the weights out
-//     atom by atom, already swizzled;
-//   * each consumer warpgroup runs wgmma.mma_async m64nBNk16 on its 64
-//     rows, four per atom, float32 accumulators in registers, one
-//     stage's group in flight while it waits for the next, then releases
-//     the stage;
-//   * the epilogue adds the biases, applies the ReLU, rounds once to
-//     bfloat16 and stores 16 bytes a lane (the lanes of a quad trade their
-//     channel pairs by shuffles); meanwhile the producer fills the next
-//     tile.
-
 constexpr int kBM = 128;          // output pixels of a tile (M)
-constexpr int kBK = 64;           // K of a stage: one 128-byte row of bf16
 constexpr int kConsumers = 2;     // consumer warpgroups of 64 rows each
 constexpr int kGemmThreads = 128 * (kConsumers + 1);
-constexpr int kABytes = kBM * kBK * 2;
-// A stage holds AT K atoms of kBK (one 128-byte row each) of the A and
-// the B tile: two where BN <= 128 and K > kBK (atoms_for), so that a
-// step's products outweigh its handshakes; the ring, as many stages as
-// 192 KB holds: 4 at BN = 256 (one atom), 3 at 128, 4 at 64 (two atoms).
-constexpr int atoms_for(int bn, int ktot) { return bn == 256 || ktot <= kBK ? 1 : 2; }
-template <int BN, int AT>
-constexpr int kStageBytes = AT * (kABytes + BN * kBK * 2);
-template <int BN, int AT>
-constexpr int kStages = (192 * 1024) / kStageBytes<BN, AT>;
+constexpr int kABytes = kBM * 128;  // an A atom: 128 rows of 128 bytes
+constexpr int kRingBytes = 192 * 1024;
+// K values of an atom (a 128-byte row): 64 bfloat16, 32 float32
+template <typename T>
+constexpr int kBK = static_cast<int>(128 / sizeof(T));
+// K of one wgmma (32 bytes): 16 bfloat16, 8 TF32
+template <typename T>
+constexpr int kKStep = static_cast<int>(32 / sizeof(T));
+// B atoms a K atom takes: one in bfloat16; B_hi and B_lo in float32
+template <typename T>
+constexpr int kSplit = sizeof(T) == 4 ? 2 : 1;
+template <typename T>
+constexpr int atoms_for(int bn, int ktot) {
+  return sizeof(T) == 4 ? 1 : (bn == 256 || ktot <= kBK<T> ? 1 : 2);
+}
+template <typename T, int BN, int AT>
+constexpr int kStageBytes = AT * (kABytes + kSplit<T> * BN * 128);
+template <typename T, int BN, int AT>
+constexpr int kStages = kRingBytes / kStageBytes<T, BN, AT>;
+// float32 at BN = 128: registers the producer hands to the consumers
+// (2 x 216 + 72 <= 512, the 64K registers of an SM over 128-thread groups)
+constexpr int kProducerRegs = 72;
+constexpr int kConsumerRegs = 216;
 
+template <typename T>
 struct Seg {
-  const __nv_bfloat16* src;  // activations (B, H, W, cs)
+  const T* src;  // activations (B, H, W, cs)
   int cs, taps, width, kchunk, kseg, vec;
 };
 
+template <typename T>
 struct ConvParams {
-  Seg seg[2];
+  Seg<T> seg[2];
   int nseg;
   int ktot;                  // the segments' kseg summed
-  const __nv_bfloat16* wtiles;  // B: (n_tiles, steps * AT, BN, 64), as the stages hold it
+  const T* wtiles;           // B: (n_tiles, steps * AT, split, BN, BK), as the stages hold it
   const float* bias_a;
   const float* bias_x;       // null, or the shortcut's bias (added to bias_a)
-  __nv_bfloat16* out;        // (B, H, W, cout)
+  T* out;                    // (B, H, W, cout)
   long long m_total;         // B * H * W
   long long tiles;           // m_tiles * n_tiles, n fastest
   int n_tiles, h, w, cout;
-  int sync_loads;            // a segment's channel count is odd: 2-byte loads
+  int sync_loads;            // a bfloat16 segment's channel count is odd: 2-byte loads
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -407,6 +233,12 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // acc += A (64 x 16, shared, desc_a) * B (16 x 256, shared, desc_b), bf16 in,
@@ -481,6 +313,50 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t desc_a, uint6
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// acc = A (64 x 8: a0..a3, TF32 values in registers) * B (8 x 128, shared,
+// desc_b) + (scale_d ? acc : 0), float32 accumulators in the wgmma fragment
+// layout (64 a thread).
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint32_t a0, uint32_t a1,
+                                               uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+// acc = A (64 x 8: a0..a3, TF32 values in registers) * B (8 x 64, shared,
+// desc_b) + (scale_d ? acc : 0), float32 accumulators in the wgmma fragment
+// layout (32 a thread).
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint32_t a0, uint32_t a1,
+                                               uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
 template <int BN>
 __device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t desc_a, uint64_t desc_b) {
   if constexpr (BN == 256) {
@@ -492,38 +368,42 @@ __device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t desc_a, uint6
   }
 }
 
-// The producer warpgroup: thread i copies the 16-byte column q = i % 8 of
-// rows i / 8 + 16 r of the A tile (r < 8) and of the B tile (r < BN / 16),
-// so that a row's 128 bytes come from 8 neighbouring lanes.  Per tile it
-// notes each of its rows' pixel and, as 9 bits, which of the stencil's
-// taps land inside the image (bit dy * 3 + dx; bit 4, the centre, for the
-// shortcut), so that a step costs an add, a bit test and a copy per row.
-// A segment of 64-channel chunks (every UNet block but enc_0's 4 input
-// channels) takes one (chunk, tap) a step; the others decode each copy's
-// K index (taps spanned, ragged channels, odd channel counts).
-// One K atom of this producer thread's part of the A tile at `a_s`: the 8
-// K values k_step + 8 q .. + 7 of rows row0 + 16 r, r < 8, whose pixels
-// and in-image taps are pix[r] and taps_in[r].  The 8 values lie in one
-// segment (segments are multiples of 16 long) or past the last K (zeros).
-__device__ __forceinline__ void load_a_atom(const ConvParams& p, uint32_t a_s, int k_step, int q,
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2], const uint32_t* a, uint64_t desc_b,
+                                           int scale_d) {
+  if constexpr (BN == 128) {
+    wgmma_tf32_n128(d, a[0], a[1], a[2], a[3], desc_b, scale_d);
+  } else {
+    wgmma_tf32_n64(d, a[0], a[1], a[2], a[3], desc_b, scale_d);
+  }
+}
+
+// One K atom of this producer thread's part of the A tile at `a_s`: the V
+// K values k_step + V q .. + V - 1 (V = 16 bytes' worth: 8 bfloat16, 4
+// float32) of rows row0 + 16 r, r < 8, whose pixels and in-image taps are
+// pix[r] and taps_in[r].  The V values lie in one segment (segments are
+// multiples of one wgmma's K long) or past the last K (zeros).
+template <typename T>
+__device__ __forceinline__ void load_a_atom(const ConvParams<T>& p, uint32_t a_s, int k_step, int q,
                                             int row0, int swz, const long long (&pix)[8],
                                             const uint32_t (&taps_in)[8]) {
 #ifdef LHG_ABLATE_A
   return;  // a measurement build of k5_ablation.py: A left as it was, a wrong result
 #endif
-  const int kk = k_step + 8 * q;
+  constexpr int kV = 16 / sizeof(T);
+  const int kk = k_step + kV * q;
   const bool k_ok = kk < p.ktot;
   const bool second = p.nseg > 1 && kk >= p.seg[0].kseg;
-  const Seg& sg = p.seg[second ? 1 : 0];
+  const Seg<T>& sg = p.seg[second ? 1 : 0];
   const int kl = kk - (second ? p.seg[0].kseg : 0);
-  if (sg.width == kBK && sg.vec == 8 && k_ok) {
-    // 64-channel chunks: the 8 values lie in one (chunk, tap), a 16-byte
+  if (sg.width == kBK<T> && sg.vec == kV && k_ok) {
+    // BK-channel chunks: the V values lie in one (chunk, tap), a 16-byte
     // copy a row (the segment need not start on an atom: conv2's own
     // segment is 9 C long)
-    const int j = kl / kBK;
+    const int j = kl / kBK<T>;
     const int chunk = sg.taps == 9 ? j / 9 : j;
     const int tap = sg.taps == 9 ? j - 9 * chunk : 4;
-    const int c = chunk * kBK + (kl - j * kBK);
+    const int c = chunk * kBK<T> + (kl - j * kBK<T>);
     const bool c_ok = c < sg.cs;
     const long long off = (static_cast<long long>(tap / 3 - 1) * p.w + (tap % 3 - 1)) * sg.cs + c;
 #pragma unroll
@@ -542,7 +422,7 @@ __device__ __forceinline__ void load_a_atom(const ConvParams& p, uint32_t a_s, i
   // fewer channels: each copy of vec channels decodes its own tap
   const int chunk = kl / sg.kchunk;
   const int rem = kl - chunk * sg.kchunk;
-  for (int e = 0; e < 8; e += sg.vec) {
+  for (int e = 0; e < kV; e += sg.vec) {
     const int t = (rem + e) / sg.width;
     const int c = chunk * sg.width + (rem + e - t * sg.width);
     const bool ok = t < sg.taps && c < sg.cs;
@@ -551,14 +431,13 @@ __device__ __forceinline__ void load_a_atom(const ConvParams& p, uint32_t a_s, i
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const bool good = ok && ((taps_in[r] >> tap) & 1u);
-      const __nv_bfloat16* src = good ? sg.src + (pix[r] * sg.cs + off) : sg.src;
-      const uint32_t dst = a_s + (row0 + 16 * r) * 128 + swz + 2 * e;
-      if (sg.vec > 1) {
-        cp_async_ca(dst, src, 2 * sg.vec, good);
-      } else {
-        const __nv_bfloat16 v = good ? *src : __float2bfloat16_rn(0.f);
-        asm volatile("st.shared.b16 [%0], %1;\n" :: "r"(dst),
-                     "h"(*reinterpret_cast<const unsigned short*>(&v)) : "memory");
+      const T* src = good ? sg.src + (pix[r] * sg.cs + off) : sg.src;
+      const uint32_t dst = a_s + (row0 + 16 * r) * 128 + swz + static_cast<int>(sizeof(T)) * e;
+      if (sizeof(T) == 4 || sg.vec > 1) {
+        cp_async_ca(dst, src, static_cast<int>(sizeof(T)) * sg.vec, good);
+      } else {  // a single bfloat16: below cp.async's 4 bytes
+        const unsigned short v = good ? *reinterpret_cast<const unsigned short*>(src) : 0;
+        asm volatile("st.shared.b16 [%0], %1;\n" :: "r"(dst), "h"(v) : "memory");
       }
     }
   }
@@ -570,9 +449,10 @@ __device__ __forceinline__ void load_a_atom(const ConvParams& p, uint32_t a_s, i
 // Per tile it notes each of its rows' pixel and, as 9 bits, which of the
 // stencil's taps land inside the image (bit dy * 3 + dx; bit 4, the
 // centre, for the shortcut), so that a copy costs an add and a bit test.
-template <int BN, int AT>
-__device__ __forceinline__ void produce(const ConvParams& p, uint8_t* smem, uint32_t full,
+template <typename T, int BN, int AT>
+__device__ __forceinline__ void produce(const ConvParams<T>& p, uint8_t* smem, uint32_t full,
                                         uint32_t empty, int steps) {
+  constexpr int kSt = kStages<T, BN, AT>;
   const int i = threadIdx.x - 128 * kConsumers;
   const int q = i & 7;
   const int row0 = i >> 3;
@@ -600,19 +480,24 @@ __device__ __forceinline__ void produce(const ConvParams& p, uint8_t* smem, uint
       taps_in[r] = in ? bits : 0u;
     }
     for (int s = 0; s < steps; ++s, ++it) {
-      const int stage = static_cast<int>(it % kStages<BN, AT>);
-      mbar_wait_warp(empty + 8 * stage, (static_cast<uint32_t>(it / kStages<BN, AT>) & 1) ^ 1);
-      const uint32_t a_s = smem_u32(smem + stage * kStageBytes<BN, AT>);
-      if (i == 0) {  // B: one copy of the tile, which the wrapper laid out as the stage holds it
-        constexpr int kBytes = AT * BN * kBK * 2;
+      const int stage = static_cast<int>(it % kSt);
+      mbar_wait_warp(empty + 8 * stage, (static_cast<uint32_t>(it / kSt) & 1) ^ 1);
+      const uint32_t a_s = smem_u32(smem + stage * kStageBytes<T, BN, AT>);
+      if (i == 0) {  // B: one copy of the step's atoms, which the wrapper laid out as the stage holds them
+        constexpr int kBytes = kSplit<T> * AT * BN * 128;
+#ifdef LHG_ABLATE_B  // a measurement build of k5_ablation.py: B left as it was, a wrong result
+        mbar_arrive(full + 8 * stage);
+#else
         mbar_arrive_expect_tx(full + 8 * stage, kBytes);
         bulk_copy(a_s + AT * kABytes,
-                  p.wtiles + ((tile % p.n_tiles) * steps + s) * (AT * BN * kBK), kBytes,
-                  full + 8 * stage);
+                  reinterpret_cast<const uint8_t*>(p.wtiles) +
+                      ((tile % p.n_tiles) * steps + s) * kBytes,
+                  kBytes, full + 8 * stage);
+#endif
       }
 #pragma unroll
       for (int atom = 0; atom < AT; ++atom) {
-        load_a_atom(p, a_s + atom * kABytes, (s * AT + atom) * kBK, q, row0, swz, pix,
+        load_a_atom(p, a_s + atom * kABytes, (s * AT + atom) * kBK<T>, q, row0, swz, pix,
                     taps_in);
       }
       if (p.sync_loads) {  // plain stores among the copies: wait, then arrive
@@ -626,7 +511,8 @@ __device__ __forceinline__ void produce(const ConvParams& p, uint8_t* smem, uint
 }
 
 // The epilogue's bias at channel n < cout: b1, or b2 + b3.
-__device__ __forceinline__ float bias_at(const ConvParams& p, int n) {
+template <typename T>
+__device__ __forceinline__ float bias_at(const ConvParams<T>& p, int n) {
   return p.bias_x != nullptr ? p.bias_a[n] + p.bias_x[n] : p.bias_a[n];
 }
 
@@ -641,10 +527,12 @@ __device__ __forceinline__ uint32_t pick(const uint32_t (&x)[4], int k) {
   return k == 0 ? x[0] : k == 1 ? x[1] : k == 2 ? x[2] : x[3];
 }
 
-// A consumer warpgroup (wg 0 or 1): rows 64 wg .. 64 wg + 63 of each tile.
+// A bfloat16 consumer warpgroup (wg 0 or 1): rows 64 wg .. 64 wg + 63 of each tile.
 template <int BN, int AT>
-__device__ __forceinline__ void consume(const ConvParams& p, uint8_t* smem, uint32_t full,
-                                        uint32_t empty, int steps, int wg) {
+__device__ __forceinline__ void consume_bf16(const ConvParams<__nv_bfloat16>& p, uint8_t* smem,
+                                             uint32_t full, uint32_t empty, int steps, int wg) {
+  constexpr int kSt = kStages<__nv_bfloat16, BN, AT>;
+  constexpr int kBK16 = kBK<__nv_bfloat16>;
   const int lane = threadIdx.x & 31;
   const int warp = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2;
@@ -659,11 +547,11 @@ __device__ __forceinline__ void consume(const ConvParams& p, uint8_t* smem, uint
     for (int k = 0; k < BN / 2; ++k) acc[k] = 0.f;
     int prev = -1;
     for (int s = 0; s < steps; ++s, ++it) {
-      const int stage = static_cast<int>(it % kStages<BN, AT>);
-      mbar_wait_warp(full + 8 * stage, static_cast<uint32_t>(it / kStages<BN, AT>) & 1);
+      const int stage = static_cast<int>(it % kSt);
+      mbar_wait_warp(full + 8 * stage, static_cast<uint32_t>(it / kSt) & 1);
       // the copies landed through the generic proxy; wgmma reads through the async one
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      const uint32_t a_s = smem_u32(smem + stage * kStageBytes<BN, AT>);
+      const uint32_t a_s = smem_u32(smem + stage * kStageBytes<__nv_bfloat16, BN, AT>);
       const uint64_t da = smem_desc(a_s + wg * 64 * 128);
       const uint64_t db = smem_desc(a_s + AT * kABytes);
       fence_operands(acc);
@@ -674,9 +562,9 @@ __device__ __forceinline__ void consume(const ConvParams& p, uint8_t* smem, uint
 #pragma unroll
       for (int atom = 0; atom < AT; ++atom) {
 #pragma unroll
-        for (int k = 0; k < kBK / 16; ++k) {  // + 32 bytes of K a step, + an atom's bytes an atom
+        for (int k = 0; k < kBK16 / 16; ++k) {  // + 32 bytes of K a step, + an atom's bytes an atom
           wgmma<BN>(acc, da + ((atom * kABytes) >> 4) + 2 * k,
-                    db + ((atom * BN * kBK * 2) >> 4) + 2 * k);
+                    db + ((atom * BN * 128) >> 4) + 2 * k);
         }
       }
 #endif
@@ -720,9 +608,10 @@ __device__ __forceinline__ void consume(const ConvParams& p, uint8_t* smem, uint
           v.z = pick(got, (tq - 2) & 3);
           v.w = pick(got, (tq - 3) & 3);
           const int n = n0 + 8 * (4 * jj + tq);
-#ifndef LHG_ABLATE_STORE  // a measurement build of k5_ablation.py: no stores
-          if (m < p.m_total && n < p.cout) *reinterpret_cast<uint4*>(o + n) = v;
+#ifdef LHG_ABLATE_STORE  // a measurement build of k5_ablation.py: the stores skipped at run time
+          if (p.m_total > 0) continue;
 #endif
+          if (m < p.m_total && n < p.cout) *reinterpret_cast<uint4*>(o + n) = v;
         }
       } else if (m < p.m_total) {
 #pragma unroll
@@ -738,90 +627,184 @@ __device__ __forceinline__ void consume(const ConvParams& p, uint8_t* smem, uint
   }
 }
 
-template <int BN, int AT>
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// x = hi + lo + O(2^-22 x): hi = rna(x), lo = rna(x - hi), each a TF32
+// value (the low 13 bits 0), rounded to nearest with ties away from zero.
+// x - hi is exact in float32.
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(__uint_as_float(x)));
+  hi &= 0xFFFFE000u;
+  const float r = __fsub_rn(__uint_as_float(x), __uint_as_float(hi));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+  lo &= 0xFFFFE000u;
+}
+
+// A float32 consumer warpgroup (wg 0 or 1): rows 64 wg .. 64 wg + 63 of
+// each tile, three TF32 products per 8 K into a stage's partial sums, which
+// round-to-nearest adds take into the tile's sums (the note at the top).
+template <int BN>
+__device__ __forceinline__ void consume_f32(const ConvParams<float>& p, uint8_t* smem, uint32_t full,
+                                            uint32_t empty, int steps, int wg) {
+  constexpr int kSt = kStages<float, BN, 1>;
+  constexpr uint64_t kLo = (BN * 128) >> 4;  // B_lo after B_hi, in descriptor units
+  const int lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const bool leader = (threadIdx.x & 127) == 0;
+  // the fragment's rows r = 64 wg + 16 warp + g and r + 8 (both with r % 8
+  // = g), value tq of a 16-byte chunk
+  const uint32_t a_off = (wg * 64 + warp * 16 + g) * 128 + tq * 4;
+  float acc[BN / 2], part[BN / 2];
+  long long it = 0;
+  for (long long tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    const long long m0 = (tile / p.n_tiles) * kBM;
+    const int n0 = static_cast<int>(tile % p.n_tiles) * BN;
+#pragma unroll
+    for (int k = 0; k < BN / 2; ++k) acc[k] = 0.f;
+    for (int s = 0; s < steps; ++s, ++it) {
+      const int stage = static_cast<int>(it % kSt);
+      mbar_wait_warp(full + 8 * stage, static_cast<uint32_t>(it / kSt) & 1);
+      const uint32_t a_s = smem_u32(smem + stage * kStageBytes<float, BN, 1>);
+      // the m64k8 fragment of each K step ks: a0 (r, 8 ks + tq), a1 (r + 8,
+      // 8 ks + tq), a2 (r, 8 ks + tq + 4), a3 (r + 8, 8 ks + tq + 4); K
+      // 8 ks + tq lies in 16-byte chunk 2 ks, + 4 in chunk 2 ks + 1
+      uint32_t hi[16], lo[16];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const uint32_t chunk = static_cast<uint32_t>((2 * ks + (v >> 1)) ^ g);
+          split_tf32(lds32(a_s + a_off + (v & 1) * 1024 + (chunk << 4)), hi[4 * ks + v],
+                     lo[4 * ks + v]);
+        }
+      }
+      const uint64_t db = smem_desc(a_s + kABytes);
+      fence_operands(part);
+      fence_operands(hi);
+      fence_operands(lo);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#ifndef LHG_ABLATE_MMA  // a measurement build of k5_ablation.py: no products
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {  // + 32 bytes of B a step of 8 K; the first starts part
+        wgmma_tf32<BN>(part, lo + 4 * ks, db + 2 * ks, ks > 0);
+        wgmma_tf32<BN>(part, hi + 4 * ks, db + kLo + 2 * ks, 1);
+        wgmma_tf32<BN>(part, hi + 4 * ks, db + 2 * ks, 1);
+      }
+#endif
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the fragment's registers and the stage's B stay in use until the
+      // products are done
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_operands(part);
+      fence_operands(hi);
+      fence_operands(lo);
+      if (leader) mbar_arrive(empty + 8 * stage);
+#pragma unroll
+      for (int k = 0; k < BN / 2; ++k) acc[k] = __fadd_rn(acc[k], part[k]);
+    }
+
+    // accumulator 4 j + 2 i + e: row 16 warp + g + 8 i, channel 8 j + 2 tq + e
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const long long m = m0 + wg * 64 + warp * 16 + g + 8 * i;
+      if (m >= p.m_total) continue;
+      float* o = p.out + m * p.cout;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * tq;
+        if (n >= p.cout) continue;
+        const float v0 = fmaxf(acc[4 * j + 2 * i] + bias_at(p, n), 0.f);
+#ifdef LHG_ABLATE_STORE  // a measurement build of k5_ablation.py: the stores skipped at run time
+        if (p.m_total > 0) continue;
+#endif
+        if ((p.cout & 1) == 0) {  // n even: 8-byte stores, a quad's 32 bytes contiguous
+          *reinterpret_cast<float2*>(o + n) =
+              make_float2(v0, fmaxf(acc[4 * j + 2 * i + 1] + bias_at(p, n + 1), 0.f));
+        } else {
+          o[n] = v0;
+          if (n + 1 < p.cout) o[n + 1] = fmaxf(acc[4 * j + 2 * i + 1] + bias_at(p, n + 1), 0.f);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int BN, int AT>
 __global__ void __launch_bounds__(kGemmThreads, 1)
-    conv_wgmma_kernel(const __grid_constant__ ConvParams p) {
+    conv_wgmma_kernel(const __grid_constant__ ConvParams<T> p) {
+  constexpr int kSt = kStages<T, BN, AT>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   // the stages 1024-byte aligned, as the 128-byte swizzle requires
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const uint32_t full = smem_u32(smem + kStages<BN, AT> * kStageBytes<BN, AT>);
-  const uint32_t empty = full + 8 * kStages<BN, AT>;
+  const uint32_t full = smem_u32(smem + kSt * kStageBytes<T, BN, AT>);
+  const uint32_t empty = full + 8 * kSt;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages<BN, AT>; ++s) {
+    for (int s = 0; s < kSt; ++s) {
       mbar_init(full + 8 * s, 129);          // each producer thread's copies, and B's
       mbar_init(empty + 8 * s, kConsumers);  // each consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int steps = (p.ktot + AT * kBK - 1) / (AT * kBK);
+  const int steps = (p.ktot + AT * kBK<T> - 1) / (AT * kBK<T>);
   const int wg = threadIdx.x >> 7;
+  constexpr bool kMoveRegs = sizeof(T) == 4 && BN == 128;
   if (wg == kConsumers) {
-    produce<BN, AT>(p, smem, full, empty, steps);
+    if constexpr (kMoveRegs) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    produce<T, BN, AT>(p, smem, full, empty, steps);
   } else {
-    consume<BN, AT>(p, smem, full, empty, steps, wg);
+    if constexpr (kMoveRegs) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+    if constexpr (sizeof(T) == 4) {
+      consume_f32<BN>(p, smem, full, empty, steps, wg);
+    } else {
+      consume_bf16<BN, AT>(p, smem, full, empty, steps, wg);
+    }
   }
 }
 
-template <int BN, int AT>
-size_t wgmma_smem_bytes() {
-  return 1024 + static_cast<size_t>(kStages<BN, AT>) * kStageBytes<BN, AT> + 16 * kStages<BN, AT>;
-}
-
-template <int BN, int AT>
-int launch_wgmma(const ConvParams& p, int grid, cudaStream_t stream) {
-  const size_t smem = wgmma_smem_bytes<BN, AT>();
-  cudaError_t err = cudaFuncSetAttribute(conv_wgmma_kernel<BN, AT>,
+template <typename T, int BN, int AT>
+int launch_wgmma(const ConvParams<T>& p, int grid, cudaStream_t stream) {
+  constexpr int kSt = kStages<T, BN, AT>;
+  const size_t smem = 1024 + static_cast<size_t>(kSt) * kStageBytes<T, BN, AT> + 16 * kSt;
+  cudaError_t err = cudaFuncSetAttribute(conv_wgmma_kernel<T, BN, AT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_wgmma_kernel<BN, AT><<<grid, kGemmThreads, smem, stream>>>(p);
+  conv_wgmma_kernel<T, BN, AT><<<grid, kGemmThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // A segment from the wrapper's four integers (width, kchunk, kseg, vec),
 // checked against the rules of conv_block.py:segment.
-bool make_seg(Seg* sg, const void* src, int cs, int taps, const int* f) {
-  *sg = Seg{static_cast<const __nv_bfloat16*>(src), cs, taps, f[0], f[1], f[2], f[3]};
+template <typename T>
+bool make_seg(Seg<T>* sg, const void* src, int cs, int taps, const int* f) {
+  *sg = Seg<T>{static_cast<const T*>(src), cs, taps, f[0], f[1], f[2], f[3]};
   const int chunks = (cs + sg->width - 1) / sg->width;
   const int vec = sg->vec;
-  return sg->width == (cs >= kBK ? kBK : cs) && sg->kchunk == (taps * sg->width + 15) / 16 * 16 &&
-         sg->kseg == chunks * sg->kchunk && (vec == 1 || vec == 2 || vec == 4 || vec == 8) &&
-         cs % vec == 0;
+  return sg->width == (cs >= kBK<T> ? kBK<T> : cs) &&
+         sg->kchunk == (taps * sg->width + kKStep<T> - 1) / kKStep<T> * kKStep<T> &&
+         sg->kseg == chunks * sg->kchunk && vec >= 1 && vec <= 16 / static_cast<int>(sizeof(T)) &&
+         (vec & (vec - 1)) == 0 && cs % vec == 0;
 }
 
-}  // namespace
-
-// One folded residual block on `stream`: x (B, H, W, cin), w1 (9, cin, C),
-// w2 (9, C, C), w3 (cin, C), biases (C,), all float32 and contiguous; y1 is
-// (B, H, W, C) scratch, out (B, H, W, C).  Returns a cudaError_t value, 0
-// on success.  The Python wrapper checks devices, shapes and types.
-extern "C" int k5_residual_block(const void* x, const void* w1, const void* b1,
-                                 const void* w2, const void* b2,
-                                 const void* w3, const void* b3, void* y1,
-                                 void* out, int batch, int h, int w, int cin,
-                                 int cout, int device, void* stream) {
-  return residual_block_f32(x, w1, b1, w2, b2, w3, b3, y1, out, batch, h, w, cin, cout,
-                            device, stream);
-}
-
-// The same block in bfloat16 (x, the weights, y1 and out; the biases
-// float32), on the tensor cores.  w1 and w2 are the wrapper's B tiles
-// (conv_block.py:weight_tiles): conv1's, and conv2's with the shortcut's
-// K appended, each (n_tiles, steps, BN, 64) with every (BN, 64) tile
-// 128-byte swizzled as a stage holds it.  tiling (host memory) is
-// conv_block.py:Bf16Tiling.ints: the tile width BN, the grid, then (width,
-// kchunk, kseg, vec) of conv1's segment, conv2's and the shortcut's.
-extern "C" int k5_residual_block_bf16(const void* x, const void* w1, const void* b1,
-                                      const void* w2, const void* b2, const void* b3,
-                                      void* y1, void* out, int batch, int h, int w, int cin,
-                                      int cout, const int* tiling, int device, void* stream) {
+// One folded residual block in T: conv1 into y1, then conv2 + the shortcut
+// into out (the entries below say what each argument holds).
+template <typename T>
+int residual_block(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+                   const void* b3, void* y1, void* out, int batch, int h, int w, int cin,
+                   int cout, const int* tiling, int device, void* stream) {
   const int bn = tiling[0], grid = tiling[1];
   if (batch < 1 || h < 1 || w < 1 || cin < 1 || cout < 1 || grid < 1 ||
-      (bn != 64 && bn != 128 && bn != 256)) {
+      (bn != 64 && bn != 128 && (bn != 256 || sizeof(T) == 4))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  ConvParams c1{}, c2{};
+  ConvParams<T> c1{}, c2{};
   if (!make_seg(&c1.seg[0], x, cin, 9, tiling + 2) ||
       !make_seg(&c2.seg[0], y1, cout, 9, tiling + 6) ||
       !make_seg(&c2.seg[1], x, cin, 1, tiling + 10)) {
@@ -829,8 +812,8 @@ extern "C" int k5_residual_block_bf16(const void* x, const void* w1, const void*
   }
   const long long m_total = static_cast<long long>(batch) * h * w;
   const int n_tiles = (cout + bn - 1) / bn;
-  ConvParams* const convs[2] = {&c1, &c2};
-  for (ConvParams* c : convs) {
+  ConvParams<T>* const convs[2] = {&c1, &c2};
+  for (ConvParams<T>* c : convs) {
     c->nseg = c == &c1 ? 1 : 2;
     c->ktot = c->seg[0].kseg + (c->nseg > 1 ? c->seg[1].kseg : 0);
     c->m_total = m_total;
@@ -839,29 +822,64 @@ extern "C" int k5_residual_block_bf16(const void* x, const void* w1, const void*
     c->h = h;
     c->w = w;
     c->cout = cout;
-    c->sync_loads = c->seg[0].vec == 1 || (c->nseg > 1 && c->seg[1].vec == 1);
+    c->sync_loads = sizeof(T) == 2 && (c->seg[0].vec == 1 || (c->nseg > 1 && c->seg[1].vec == 1));
   }
-  c1.wtiles = static_cast<const __nv_bfloat16*>(w1);
+  c1.wtiles = static_cast<const T*>(w1);
   c1.bias_a = static_cast<const float*>(b1);
-  c1.out = static_cast<__nv_bfloat16*>(y1);
-  c2.wtiles = static_cast<const __nv_bfloat16*>(w2);
+  c1.out = static_cast<T*>(y1);
+  c2.wtiles = static_cast<const T*>(w2);
   c2.bias_a = static_cast<const float*>(b2);
   c2.bias_x = static_cast<const float*>(b3);
-  c2.out = static_cast<__nv_bfloat16*>(out);
+  c2.out = static_cast<T*>(out);
   if (grid > c1.tiles) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (const ConvParams* c : convs) {
-    const bool two = atoms_for(bn, c->ktot) == 2;
-    const int code = bn == 256   ? launch_wgmma<256, 1>(*c, grid, s)
-                     : bn == 128 ? (two ? launch_wgmma<128, 2>(*c, grid, s)
-                                        : launch_wgmma<128, 1>(*c, grid, s))
-                                 : (two ? launch_wgmma<64, 2>(*c, grid, s)
-                                        : launch_wgmma<64, 1>(*c, grid, s));
+  for (const ConvParams<T>* c : convs) {
+    int code;
+    if constexpr (sizeof(T) == 4) {
+      code = bn == 128 ? launch_wgmma<T, 128, 1>(*c, grid, s) : launch_wgmma<T, 64, 1>(*c, grid, s);
+    } else {
+      const bool two = atoms_for<T>(bn, c->ktot) == 2;
+      code = bn == 256   ? launch_wgmma<T, 256, 1>(*c, grid, s)
+             : bn == 128 ? (two ? launch_wgmma<T, 128, 2>(*c, grid, s)
+                                : launch_wgmma<T, 128, 1>(*c, grid, s))
+                         : (two ? launch_wgmma<T, 64, 2>(*c, grid, s)
+                                : launch_wgmma<T, 64, 1>(*c, grid, s));
+    }
     if (code != 0) return code;
   }
   return 0;
+}
+
+}  // namespace
+
+// One folded residual block in float32 on `stream`: x (B, H, W, cin), y1
+// (B, H, W, C) scratch and out (B, H, W, C), biases (C,), all float32 and
+// contiguous.  w1 and w2 are the wrapper's B tiles
+// (conv_block.py:weight_tiles, then the split): conv1's, and conv2's with
+// the shortcut's K appended, each (n_tiles, steps, 2, BN, 32), the TF32
+// values hi and lo of every (BN, 32) atom 128-byte swizzled as a stage
+// holds them.  tiling (host memory) is conv_block.py:Tiling.ints: the tile
+// width BN, the grid, then (width, kchunk, kseg, vec) of conv1's segment,
+// conv2's and the shortcut's.  Returns a cudaError_t value, 0 on success.
+// The Python wrapper checks devices, shapes and types.
+extern "C" int k5_residual_block(const void* x, const void* w1, const void* b1, const void* w2,
+                                 const void* b2, const void* b3, void* y1, void* out, int batch,
+                                 int h, int w, int cin, int cout, const int* tiling, int device,
+                                 void* stream) {
+  return residual_block<float>(x, w1, b1, w2, b2, b3, y1, out, batch, h, w, cin, cout, tiling,
+                               device, stream);
+}
+
+// The same block in bfloat16 (x, the weights, y1 and out; the biases
+// float32): w1 and w2 are (n_tiles, steps, BN, 64) tiles of bfloat16.
+extern "C" int k5_residual_block_bf16(const void* x, const void* w1, const void* b1,
+                                      const void* w2, const void* b2, const void* b3, void* y1,
+                                      void* out, int batch, int h, int w, int cin, int cout,
+                                      const int* tiling, int device, void* stream) {
+  return residual_block<__nv_bfloat16>(x, w1, b1, w2, b2, b3, y1, out, batch, h, w, cin, cout,
+                                       tiling, device, stream);
 }
 
 extern "C" const char* k5_error_string(int code) {

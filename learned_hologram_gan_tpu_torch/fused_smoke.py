@@ -39,6 +39,8 @@ from .utils.cuda_measure import (
     P999_REL_TOL,
     PEAK_BF16_FLOP_PER_S,
     PEAK_F32_FLOP_PER_S,
+    PEAK_TF32_FLOP_PER_S,
+    bound_ms,
     check_rel,
     cuda_ms,
 )
@@ -93,9 +95,22 @@ def k5_flops(b, h, w, cin, c):
     return 2.0 * b * h * w * (9 * cin * c + 9 * c * c + cin * c)
 
 
-def k5_bytes(b, h, w, cin, c):
-    """x read once, the output written once, the weights and biases read once."""
-    return 4.0 * (b * h * w * (cin + c) + 9 * cin * c + 9 * c * c + cin * c + 3 * c)
+def k5_bytes(b, h, w, cin, c, itemsize=4):
+    """x read once, the output written once, the weights read once (in
+    ``itemsize`` bytes), the float32 biases read once."""
+    return itemsize * (b * h * w * (cin + c) + 9 * cin * c + 9 * c * c + cin * c) + 4.0 * 3 * c
+
+
+def k5_work(b, h, w, cin, c, itemsize):
+    """(bytes, operations, peak rate) of K5's work on the card: in
+    bfloat16 its operations at the bf16 tensor-core rate; in float32 three
+    TF32 products for each product (the split-precision kernel) at the TF32
+    rate.  (A float32 kernel outside the tensor cores would be bound by
+    k5_flops at PEAK_F32_FLOP_PER_S, 67 TFLOP/s.)"""
+    flops = k5_flops(b, h, w, cin, c)
+    if itemsize == 2:
+        return k5_bytes(b, h, w, cin, c, 2), flops, PEAK_BF16_FLOP_PER_S
+    return k5_bytes(b, h, w, cin, c), 3 * flops, PEAK_TF32_FLOP_PER_S
 
 
 def k5_kernel(card):
@@ -125,13 +140,14 @@ def k5_kernel(card):
         prepped = conv_block.prepare(*args)
         y1 = torch.empty((BATCH, hw, hw, c), device=dev)
         out = torch.empty_like(y1)
+        nbytes, work, peak_rate = k5_work(BATCH, hw, hw, cin, c, 4)
         entry.add(
             f"K5 {name}", card, err,
             wrapper=lambda: conv_block.fused_residual_block(*args),
             plain=lambda: conv_block.residual_block_reference(*args),
             library=lambda: conv_block.residual_block_reference(*args),
             kernel=lambda: conv_block.launch(*prepped, y1, out),
-            nbytes=k5_bytes(BATCH, hw, hw, cin, c), flops=k5_flops(BATCH, hw, hw, cin, c),
+            nbytes=nbytes, flops=work, peak_flop_per_s=peak_rate,
         )
         del args, prepped, y1, out
     torch.cuda.empty_cache()
@@ -291,7 +307,8 @@ def block_split(card, unet):
     """Each of the nine blocks at batch 16 in the UNet's dtype, on a seeded
     input of its shape with the model's folded weights: K5 checked against
     the cuDNN chain (the plain version, which is also the library
-    yardstick: no single PyTorch call computes a block), then both timed.
+    yardstick: no single PyTorch call computes a block), then both timed,
+    beside K5's bound (:func:`k5_work`; in float32 also the SIMT figure).
     Returns the nine blocks' JSON entry, ``launches`` still to be filled
     in."""
     from .nn.fused_unet import _folded
@@ -299,18 +316,17 @@ def block_split(card, unet):
 
     dtype = unet.dtype
     bf16 = dtype == torch.bfloat16
-    itemsize = 2 if bf16 else 4
-    entry = _Entry("k5_residual_block_bf16" if bf16 else "k5_residual_block",
+    itemsize = dtype.itemsize
+    entry = _Entry("k5_residual_block_bf16" if bf16 else "k5_residual_block_unet",
                    "learned_hologram_gan_tpu_torch/csrc/k5_residual_block.cu",
                    "learned_hologram_gan_tpu/ops/pallas/conv_block.py:223",
                    f"batch {BATCH}, {str(dtype)[6:]}: the nine blocks of one UNet forward")
     tols = (K5_BF16_MAX_REL_TOL, K5_BF16_P999_REL_TOL) if bf16 else (MAX_REL_TOL, P999_REL_TOL)
-    peak_rate = PEAK_BF16_FLOP_PER_S if bf16 else PEAK_F32_FLOP_PER_S
     levels = unet.levels
     names = [(f"enc_{i}", i) for i in range(levels)] + [("bottleneck", levels)]
     names += [(f"dec_{i}", i) for i in reversed(range(levels))]
     rng = np.random.default_rng(14)
-    total = [0.0, 0.0]
+    total = [0.0, 0.0, 0.0, 0.0]  # K5, the chain, the bound, the float32 SIMT bound
     for name, level in names:
         block = getattr(unet, name)
         cin, c, hw = block.Conv_0.in_channels, block.Conv_0.out_channels, ROWS >> level
@@ -327,27 +343,40 @@ def block_split(card, unet):
         err = check_rel(f"  K5 {name} ({BATCH}, {hw}, {hw}, {cin}) -> {c}, {str(dtype)[6:]}",
                         got, zeros, want, zeros, *tols)
         del got, want, zeros
-        n = BATCH * hw * hw
-        nbytes = itemsize * (n * (cin + c) + 9 * cin * c + 9 * c * c + cin * c) + 4 * 3 * c
+        nbytes, work, peak_rate = k5_work(BATCH, hw, hw, cin, c, itemsize)
         flops = k5_flops(BATCH, hw, hw, cin, c)
+        bound = bound_ms(nbytes, work, peak_rate)[0]
+        simt = bound_ms(nbytes, flops, PEAK_F32_FLOP_PER_S)[0]
         before = entry.kernel_ms, entry.t["plain_ms"]
         entry.add(f"  {name}", card, err,
                   wrapper=lambda: conv_block.fused_residual_block(x, *args),
                   plain=lambda: conv_block.residual_block_reference(x, *args),
                   library=lambda: conv_block.residual_block_reference(x, *args),
                   kernel=lambda: conv_block.launch(*prepped, y1, out),
-                  nbytes=nbytes, flops=flops, peak_flop_per_s=peak_rate, iters=2)
+                  nbytes=nbytes, flops=work, peak_flop_per_s=peak_rate, iters=2)
         k, r = entry.kernel_ms - before[0], entry.t["plain_ms"] - before[1]
         tf = flops / 1e9
-        total[0] += k
-        total[1] += r
-        print(f"  {name:10s} {hw:3d}^2 {cin:4d} -> {c:4d}: {tf:7.1f} GFLOP; K5 {k:7.2f} ms "
-              f"({tf / k:5.1f} TFLOP/s), cuDNN chain {r:7.2f} ms ({tf / r:5.1f} TFLOP/s)", flush=True)
+        for i, v in enumerate((k, r, bound, simt)):
+            total[i] += v
+        print(f"  {name:10s} {hw:3d}^2 {cin:4d} -> {c:4d}: {tf:7.1f} GFLOP; K5 {k:7.3f} ms "
+              f"({tf / k:5.1f} TFLOP/s, {100 * bound / k:4.1f} % of its {bound:.3f} ms bound), "
+              f"cuDNN chain {r:7.3f} ms ({tf / r:5.1f} TFLOP/s)", flush=True)
         del x, args, prepped, y1, out
-    print(f"  nine blocks ({str(dtype)[6:]}): K5 {total[0]:.1f} ms, cuDNN chain {total[1]:.1f} ms "
-          f"[{card}]", flush=True)
+    simt = "" if bf16 else f"; the float32 SIMT bound (67 TFLOP/s) {total[3]:.3f} ms"
+    print(f"  nine blocks ({str(dtype)[6:]}): K5 {total[0]:.3f} ms, cuDNN chain {total[1]:.3f} ms, "
+          f"bound {total[2]:.3f} ms{simt} [{card}]", flush=True)
     torch.cuda.empty_cache()
     return entry
+
+
+def k4_work(batch, num_d, plane, channels=3):
+    """Bytes and operations of K4's function: g0 (complex64), the w-grid,
+    the mask and the distances read once, the (B, D, C) stack written once;
+    per (distance, channel, pixel) H once (theta 2, sin + cos counted as
+    2), per output element the complex multiply (6) and the mask (2)."""
+    nbytes = (8 * batch * channels * plane + 4 * channels * plane + 4 * plane + 4 * num_d
+              + 8 * batch * num_d * channels * plane)
+    return nbytes, 4.0 * num_d * channels * plane + 8.0 * batch * num_d * channels * plane
 
 
 def k4_kernel(card):
@@ -372,10 +401,7 @@ def k4_kernel(card):
                     got.real, got.imag, want.real, want.imag)
     del got, want
     hm = plan.H * plan.mask  # the cached H stack the library yardstick reads
-    d, s = len(K4_DISTANCES), rp * cp
-    nbytes = 8 * K4_BATCH * 3 * s + 4 * 3 * s + 4 * s + 4 * d + 8 * K4_BATCH * d * 3 * s
-    # theta 2, sin + cos counted as 2, complex multiply 6, mask 2
-    flops = 12.0 * K4_BATCH * d * 3 * s
+    nbytes, flops = k4_work(K4_BATCH, len(K4_DISTANCES), rp * cp)
     entry.add("K4", card, err,
               wrapper=lambda: transfer.apply_transfer_stack(*args),
               plain=lambda: transfer.apply_transfer_stack_reference(*args),

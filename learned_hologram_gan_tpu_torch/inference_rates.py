@@ -1,10 +1,12 @@
-"""bfloat16 POH/s of the module path and the fused eval path, to compare
-two checkouts of the port on one card.
+"""POH/s of the module path and the fused eval path, to compare two
+checkouts of the port on one card.
 
     python3 learned_hologram_gan_tpu_torch/inference_rates.py [--root DIR] [--trials N] [--reps N]
+        [--dtype bfloat16|float32]
 
 Imports ``learned_hologram_gan_tpu_torch`` from ``DIR`` (default: the
-checkout that holds this script) and times, on the card, in bfloat16 with
+checkout that holds this script) and times, on the card, in ``--dtype``
+(bfloat16 by default; float32 with TF32 off, as the port runs it) with
 seeded random weights (384^2, pad 320, batch 16, base 64):
 
 * bench.py's pipeline as ``bf16_smoke.inference`` times it (filter 0.45,
@@ -52,7 +54,9 @@ def main(argv=None) -> int:
                         help="checkout whose learned_hologram_gan_tpu_torch is timed")
     parser.add_argument("--trials", type=int, default=11, help="bench.py-style trials of ten batches")
     parser.add_argument("--reps", type=int, default=21, help="calls of each path, in turns")
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = parser.parse_args(argv)
+    tag = {"bfloat16": "bf16", "float32": "f32"}[args.dtype]
     # the package from --root, and nothing from this script's own directory
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path[:] = [os.path.abspath(args.root)] + [
@@ -76,7 +80,7 @@ def main(argv=None) -> int:
     print(f"package {os.path.dirname(pkg.__file__)} [{card}]", flush=True)
     dev = torch.device("cuda")
     cfg = GeneratorConfig(rows=ROWS, cols=COLS, pad_size=PAD, filter_radius_coefficient=0.45,
-                          dtype="bfloat16")
+                          dtype=args.dtype)
     gen_plan = make_generator_plan(cfg, device=dev)
 
     # bench.py's pipeline, as bf16_smoke.inference times it
@@ -130,7 +134,7 @@ def main(argv=None) -> int:
             fn()
             torch.cuda.synchronize()
             times[k].append(time.perf_counter() - start)
-    result = dict(bench_bf16=bench, **{f"{k}_bf16": _rates(v, BATCH) for k, v in times.items()})
+    result = {f"bench_{tag}": bench, **{f"{k}_{tag}": _rates(v, BATCH) for k, v in times.items()}}
     for k, r in result.items():
         print(f"{k}: median {r['median']:.2f} POH/s of {r['n']} (min {r['min']:.2f}, max {r['max']:.2f}) "
               f"[{card}]", flush=True)

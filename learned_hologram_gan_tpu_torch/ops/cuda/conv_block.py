@@ -21,17 +21,18 @@ two convolutions and the output once at the end, as the JAX kernel does
   cast to bfloat16 and added there.
 * :func:`fused_residual_block` is K5's wrapper: on a CUDA tensor it
   launches ``csrc/k5_residual_block.cu`` (one C entry per block, two kernel
-  launches inside; a float32 entry on the SIMT cores and a bfloat16 entry
-  on the tensor cores, an implicit GEMM on ``wgmma`` with float32
-  accumulation fed by a ring of ``cp.async`` stages) or raises; a CPU
+  launches inside: an implicit GEMM on ``wgmma`` with float32 accumulation
+  fed by a ring of ``cp.async`` stages, in float32 as three TF32 products
+  per product, split precision, in bfloat16 as one) or raises; a CPU
   tensor takes the plain version.
 * :func:`supported` is K5's own predicate, from Hopper's limits (the
   kernel tiles over pixels and channels, so neither the weights nor the
   activations need to fit in shared memory whole), not the TPU's VMEM model.
-* :func:`bf16_tiling` picks the bfloat16 kernel's tile and grid for a
-  block shape; :func:`gemm_weights` lays a convolution's weights out as
-  its GEMM matrix in the kernel's K order (:class:`Segment`), and
-  :func:`weight_tiles` that matrix as the kernel's stages hold it.
+* :func:`tiling` picks the kernel's tile and grid for a block shape and an
+  element size; :func:`gemm_weights` lays a convolution's weights out as
+  its GEMM matrix in the kernel's K order (:class:`Segment`),
+  :func:`weight_tiles` that matrix as the kernel's stages hold it, and in
+  float32 :func:`split_tf32` splits the tiles into their TF32 hi and lo.
 """
 
 from __future__ import annotations
@@ -49,33 +50,43 @@ from torch import nn
 from ...nn.blocks import BN_EPS, BatchNorm, full_f32_convs
 
 KERNEL_NAME = "k5_residual_block"
-# the float32 kernel's tile (csrc/k5_residual_block.cu): 8 x 32 pixels x 64 channels
-TILE_ROWS, TILE_COLS, TILE_N = 8, 32, 64
-_MAX_GRID_YZ = 65535
-_MAX_GRID_X = 2**31 - 1
-# the bfloat16 kernel's (conv_wgmma_kernel): a tile of BF16_BM flattened
-# output pixels (two consumer warpgroups of 64 rows) by 64, 128 or 256
-# output channels (bf16_bn), K through shared memory in atoms of BF16_BK
-# (one 128-byte swizzled row of bf16), bf16_atoms of them a stage, in a
-# ring of bf16_stages stages; one block of 384 threads (the consumers and
-# a producer warpgroup) an SM
-BF16_BM, BF16_BK = 128, 64
-BF16_BLOCKS_PER_SM = 1
+# The kernel (conv_wgmma_kernel): a tile of GEMM_BM flattened output
+# pixels (two consumer warpgroups of 64 rows) by 64, 128 or (bfloat16) 256
+# output channels (tile_bn), K through shared memory in atoms of one
+# 128-byte swizzled row (gemm_bk: 64 bfloat16, 32 float32 values),
+# stage_atoms of them a stage (with B_hi and B_lo in float32), in a ring of
+# ring_stages stages in RING_BYTES; one block of 384 threads (the consumers
+# and a producer warpgroup) an SM.
+GEMM_BM = 128
+GEMM_BLOCKS_PER_SM = 1
+RING_BYTES = 192 * 1024
+_INT32_MAX = 2**31 - 1
+
+
+def gemm_bk(itemsize: int) -> int:
+    """K values of one atom, a 128-byte row: 64 bfloat16, 32 float32."""
+    return 128 // itemsize
+
+
+def b_split(itemsize: int) -> int:
+    """B atoms a K atom takes: one in bfloat16; hi and lo in float32."""
+    return 2 if itemsize == 4 else 1
 
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
-    """One convolution's part of the bfloat16 kernel's K: ``channels``
-    input channels at ``taps`` taps (9: a 3x3 conv; 1: the 1x1 shortcut,
-    its centre tap).  K runs chunk by chunk, then tap by tap, then channel
-    by channel: kk = chunk * kchunk + tap * width + ci reads channel
-    chunk * width + ci.  ``width`` is 64 channels, or all of them when
-    there are fewer (the K step then spans taps: enc_0's 4 channels take
-    9 * 4 = 36 values, not 9 * 64); ``kchunk`` is taps * width padded to a
-    multiple of 16 (one wgmma's K), ``kseg`` the chunks' K.  ``vec`` is the
-    channels one copy moves: the largest power of two up to 8 that divides
-    ``channels`` (16-byte copies where it is 8; 2-byte loads where the
-    count is odd)."""
+    """One convolution's part of the kernel's K: ``channels`` input
+    channels at ``taps`` taps (9: a 3x3 conv; 1: the 1x1 shortcut, its
+    centre tap).  K runs chunk by chunk, then tap by tap, then channel by
+    channel: kk = chunk * kchunk + tap * width + ci reads channel
+    chunk * width + ci.  ``width`` is one atom's channels (:func:`gemm_bk`),
+    or all of them when there are fewer (the K step then spans taps:
+    enc_0's 4 channels take 9 * 4 = 36 values, not 9 * 64); ``kchunk`` is
+    taps * width padded to one wgmma's K (32 bytes: 16 bfloat16, 8 TF32
+    values), ``kseg`` the chunks' K.  ``vec`` is the channels one copy
+    moves: the largest power of two up to 16 bytes' worth that divides
+    ``channels`` (16-byte copies where it is 16 bytes' worth; 2-byte loads
+    where a bfloat16 count is odd)."""
 
     channels: int
     taps: int
@@ -85,45 +96,48 @@ class Segment:
     vec: int
 
 
-def segment(channels: int, taps: int) -> Segment:
-    width = min(channels, BF16_BK)
-    kchunk = -(-taps * width // 16) * 16
-    vec = next(v for v in (8, 4, 2, 1) if channels % v == 0)
+def segment(channels: int, taps: int, itemsize: int) -> Segment:
+    kstep, vmax = 32 // itemsize, 16 // itemsize
+    width = min(channels, gemm_bk(itemsize))
+    kchunk = -(-taps * width // kstep) * kstep
+    vec = next(v for v in (8, 4, 2, 1) if v <= vmax and channels % v == 0)
     return Segment(channels, taps, width, kchunk, -(-channels // width) * kchunk, vec)
 
 
-def bf16_segments(cin: int, cout: int) -> Tuple[Segment, Tuple[Segment, Segment]]:
+def segments(cin: int, cout: int, itemsize: int) -> Tuple[Segment, Tuple[Segment, Segment]]:
     """conv1's segment (x at 9 taps), and conv2's two: y1 at 9 taps, then
     the shortcut, x at its centre tap."""
-    return segment(cin, 9), (segment(cout, 9), segment(cin, 1))
+    return segment(cin, 9, itemsize), (segment(cout, 9, itemsize), segment(cin, 1, itemsize))
 
 
-def bf16_bn(cout: int) -> int:
-    """The bfloat16 kernel's tile width: the widest of 64, 128 and 256
-    channels that cout fills."""
-    return 64 if cout <= 64 else (128 if cout <= 128 else 256)
+def tile_bn(cout: int, itemsize: int) -> int:
+    """The tile width: the widest of 64, 128 and 256 channels that cout
+    fills; in float32 at most 128, whose consumers hold a stage's partial
+    sums beside the tile's."""
+    return 64 if cout <= 64 else (128 if cout <= 128 or itemsize == 4 else 256)
 
 
-def bf16_atoms(bn: int, ktot: int) -> int:
-    """K atoms of BF16_BK a stage holds for a convolution of K ``ktot`` at
-    tile width ``bn``: two where the tile is at most 128 channels wide, so
+def stage_atoms(bn: int, ktot: int, itemsize: int) -> int:
+    """K atoms a stage holds for a convolution of K ``ktot`` at tile width
+    ``bn``.  bfloat16: two where the tile is at most 128 channels wide, so
     that a step's products outweigh its handshakes; one at 256, whose stage
-    is large already, and where one atom holds all of K (enc_0's conv1)."""
-    return 1 if bn == 256 or ktot <= BF16_BK else 2
+    is large already, and where one atom holds all of K (enc_0's conv1).
+    float32: one, whose 12 TF32 products already outweigh a handshake."""
+    return 1 if itemsize == 4 or bn == 256 or ktot <= gemm_bk(itemsize) else 2
 
 
-def bf16_stages(bn: int, atoms: int) -> int:
-    """The ring's depth: as many stages (``atoms`` atoms of the A and the B
-    tile each) as 192 KB of shared memory holds."""
-    return (192 * 1024) // (atoms * (BF16_BM + bn) * BF16_BK * 2)
+def ring_stages(bn: int, atoms: int, itemsize: int) -> int:
+    """The ring's depth: as many stages (``atoms`` atoms of the A tile and
+    of each B tile) as RING_BYTES of shared memory holds."""
+    return RING_BYTES // (atoms * (GEMM_BM + b_split(itemsize) * bn) * 128)
 
 
 @dataclasses.dataclass(frozen=True)
-class Bf16Tiling:
-    """The bfloat16 kernel's launch for one block shape: tiles of BF16_BM
-    pixels x ``bn`` channels, ``n_tiles`` fastest; a persistent grid of
-    ``grid`` blocks, block i taking tiles i, i + grid, ...; conv1's segment
-    and conv2's two (its own, then the shortcut's)."""
+class Tiling:
+    """The kernel's launch for one block shape: tiles of GEMM_BM pixels x
+    ``bn`` channels, ``n_tiles`` fastest; a persistent grid of ``grid``
+    blocks, block i taking tiles i, i + grid, ...; conv1's segment and
+    conv2's two (its own, then the shortcut's)."""
 
     bn: int
     m_total: int
@@ -146,19 +160,20 @@ class Bf16Tiling:
                         dtype=np.int32)
 
 
-def bf16_tiling(batch: int, h: int, w: int, cin: int, cout: int, sms: int) -> Bf16Tiling:
-    """The tile and grid of a (batch, h, w, cin) -> cout block on a card of
-    ``sms`` SMs: the widest of 64, 128 and 256 channels a tile that cout
-    fills (a wider tile reads each pixel's inputs fewer times: the stages'
-    loads, not the products, bound the kernel), the flattened pixels in
-    tiles of 128 (so a 24 x 24 image wastes no column slots), and one
-    persistent block per SM (or one per tile, if fewer), each walking its
-    tiles so that a tile's epilogue overlaps the next one's loads."""
-    bn = bf16_bn(cout)
+def tiling(batch: int, h: int, w: int, cin: int, cout: int, sms: int, itemsize: int) -> Tiling:
+    """The tile and grid of a (batch, h, w, cin) -> cout block of
+    ``itemsize``-byte elements on a card of ``sms`` SMs: the widest tile
+    that cout fills (:func:`tile_bn`; a wider tile reads each pixel's
+    inputs fewer times: the stages' loads, not the products, bound the
+    bfloat16 kernel), the flattened pixels in tiles of 128 (so a
+    24 x 24 image wastes no column slots), and one persistent block per SM
+    (or one per tile, if fewer), each walking its tiles so that a tile's
+    epilogue overlaps the next one's loads."""
+    bn = tile_bn(cout, itemsize)
     m_total = batch * h * w
-    m_tiles, n_tiles = -(-m_total // BF16_BM), -(-cout // bn)
-    grid = min(m_tiles * n_tiles, sms * BF16_BLOCKS_PER_SM)
-    return Bf16Tiling(bn, m_total, m_tiles, n_tiles, grid, *bf16_segments(cin, cout))
+    m_tiles, n_tiles = -(-m_total // GEMM_BM), -(-cout // bn)
+    grid = min(m_tiles * n_tiles, sms * GEMM_BLOCKS_PER_SM)
+    return Tiling(bn, m_total, m_tiles, n_tiles, grid, *segments(cin, cout, itemsize))
 
 
 def gemm_weights(wt: torch.Tensor, sg: Segment) -> torch.Tensor:
@@ -174,22 +189,40 @@ def gemm_weights(wt: torch.Tensor, sg: Segment) -> torch.Tensor:
     return F.pad(w, (0, sg.kchunk - sg.taps * sg.width)).reshape(c, sg.kseg).contiguous()
 
 
-def weight_tiles(wm: torch.Tensor, bn: int, atoms: int) -> torch.Tensor:
+def weight_tiles(wm: torch.Tensor, bn: int, atoms: int, itemsize: int) -> torch.Tensor:
     """A (C, K) GEMM weight matrix as the kernel's B tiles, (n_tiles,
-    atoms * steps, bn, BF16_BK): atom (j, a) holds output channels j bn ..
-    j bn + bn - 1 and K a BF16_BK .. + BF16_BK, zeros past C and past K
-    (which pads to a whole step of ``atoms`` atoms), each row's 16-byte
-    chunk q stored at q ^ (row % 8) (the 128-byte swizzle, as the kernel's
-    producer stores A), so that one bulk copy of a step's atoms * bn * 128
-    bytes fills a stage's B."""
+    atoms * steps, bn, bk), bk = :func:`gemm_bk`: atom (j, a) holds output
+    channels j bn .. j bn + bn - 1 and K a bk .. + bk, zeros past C and
+    past K (which pads to a whole step of ``atoms`` atoms), each row's
+    16-byte chunk q (bk / 8 values) stored at q ^ (row % 8) (the 128-byte
+    swizzle, as the kernel's producer stores A), so that one bulk copy of a
+    step's atoms * bn * 128 bytes (twice that in float32, with
+    :func:`split_tf32`'s lo) fills a stage's B."""
+    bk = gemm_bk(itemsize)
     c, k = wm.shape
-    n_tiles, n_atoms = -(-c // bn), -(-k // (atoms * BF16_BK)) * atoms
-    w = F.pad(wm, (0, n_atoms * BF16_BK - k, 0, n_tiles * bn - c))
-    w = w.reshape(n_tiles, bn, n_atoms, BF16_BK // 8, 8).permute(0, 2, 1, 3, 4)
+    n_tiles, n_atoms = -(-c // bn), -(-k // (atoms * bk)) * atoms
+    w = F.pad(wm, (0, n_atoms * bk - k, 0, n_tiles * bn - c))
+    w = w.reshape(n_tiles, bn, n_atoms, 8, bk // 8).permute(0, 2, 1, 3, 4)
     # chunk q of row n lands at q ^ (n % 8); the XOR is its own inverse
-    src = torch.arange(BF16_BK // 8)[None, :] ^ (torch.arange(bn) % 8)[:, None]  # (bn, 8)
+    src = torch.arange(8)[None, :] ^ (torch.arange(bn) % 8)[:, None]  # (bn, 8)
     w = w[:, :, torch.arange(bn)[:, None], src]
-    return w.reshape(n_tiles, n_atoms, bn, BF16_BK).contiguous()
+    return w.reshape(n_tiles, n_atoms, bn, bk).contiguous()
+
+
+def tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32``: half of the low 13 bits' range
+    added to the magnitude, then those bits cleared."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` as two TF32 values, hi = rna(t) and lo = rna(t - hi),
+    stacked after t's first two dimensions (a tile's step): t = hi + lo
+    within 2^-22 |t|, and the kernel's three products hi hi, hi lo, lo hi
+    of two split values are exact in float32."""
+    hi = tf32_rna(t)
+    return torch.stack([hi, tf32_rna(t - hi)], dim=2).contiguous()
 
 
 def fold_conv_bn(conv: nn.Conv2d, bn: BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -233,14 +266,14 @@ def residual_block_reference(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
 
 def supported(h: int, w: int, cin: int, cout: int) -> bool:
     """True if K5 runs a block of these sizes: any positive sizes whose
-    float32 launch grid fits (pixel tiles < 2^31, channel tiles <= 65535;
-    the bfloat16 kernel's persistent grid takes any).  The shared memory
-    per block is fixed whatever the channels (59 KB of 227 KB in float32,
-    97 or 129 KB in bfloat16), because the kernels loop over them."""
+    weights the wrapper's int32 gather index can address (9 C (Cin + C) +
+    Cin C < 2^31; the persistent grid and the kernel's 64-bit pixel
+    indices take any batch and image).  The shared memory per block is
+    fixed whatever the channels (192 KB of stages plus 1 KB of alignment
+    and barriers, of 227 KB), because the kernel loops over them."""
     if min(h, w, cin, cout) < 1:
         return False
-    tiles = -(-h // TILE_ROWS) * -(-w // TILE_COLS)
-    return tiles <= _MAX_GRID_X and -(-cout // TILE_N) <= _MAX_GRID_YZ
+    return 9 * cout * (cin + cout) + cin * cout < _INT32_MAX
 
 
 # the C entry for each compute dtype
@@ -258,9 +291,8 @@ def _kernel_fn(defines: Tuple[str, ...] = ()):
     fns = {}
     for dtype, name in ENTRIES.items():
         fn = getattr(lib, name)
-        bf16 = dtype == torch.bfloat16  # one weight tensor fewer, the tiling more
-        fn.argtypes = ([ctypes.c_void_p] * (8 if bf16 else 9) + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p] * bf16 + [ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
+                                                                    ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[dtype] = fn
     err = lib.k5_error_string
@@ -271,12 +303,13 @@ def _kernel_fn(defines: Tuple[str, ...] = ()):
 
 def prepare(x, w1, b1, w2, b2, w3, b3):
     """Check a CUDA call's arguments and lay them out as the kernel takes
-    them: x (B, H, W, Cin), w1 (9, Cin, C), w2 (9, C, C), w3 (Cin, C) in x's
-    dtype (float32 or bfloat16), biases (C,) float32, all contiguous on x's
-    device.  In bfloat16 the weights go as the tensor-core kernel's B
-    tiles (:func:`weight_tiles` of the :func:`gemm_weights` matrices):
-    conv1's, and conv2's with the shortcut's K appended, so that the call
-    is (x, w1, b1, w2, b2, b3).  Raises on anything K5 does not take."""
+    them: x (B, H, W, Cin) in float32 or bfloat16, w1 (3, 3, Cin, C), w2
+    (3, 3, C, C), w3 (Cin, C) in x's dtype, biases (C,) float32, all on
+    x's device.  Returns (x, w1 tiles, b1, w2 tiles, b2, b3), contiguous:
+    the weights as the kernel's B tiles (:func:`weight_tiles` of the
+    :func:`gemm_weights` matrices), conv1's, and conv2's with the
+    shortcut's K appended, in float32 split into TF32 hi and lo
+    (:func:`split_tf32`).  Raises on anything K5 does not take."""
     if x.device.type != "cuda":
         raise ValueError(f"K5 needs a CUDA tensor, got {x.device}")
     if torch.cuda.get_device_capability(x.device) != (9, 0):
@@ -284,41 +317,39 @@ def prepare(x, w1, b1, w2, b2, w3, b3):
     if x.dtype not in ENTRIES or x.dim() != 4:
         raise ValueError(f"K5 takes float32 or bfloat16 NHWC input, got {x.dtype} "
                          f"{tuple(x.shape)}")
-    bsz, h, w, cin = x.shape
+    _, h, w, cin = x.shape
     cout = w1.shape[-1]
-    if not supported(h, w, cin, cout) or bsz > _MAX_GRID_YZ:
-        raise ValueError(f"K5 does not support a ({bsz}, {h}, {w}, {cin}) -> {cout} block")
+    if not supported(h, w, cin, cout):
+        raise ValueError(f"K5 does not support a ({h}, {w}, {cin}) -> {cout} block")
     if w3.dim() == 4:
         w3 = w3[0, 0]
     f32 = torch.float32
     want = {"w1": (w1, (3, 3, cin, cout), x.dtype), "w2": (w2, (3, 3, cout, cout), x.dtype),
             "w3": (w3, (cin, cout), x.dtype),
             "b1": (b1, (cout,), f32), "b2": (b2, (cout,), f32), "b3": (b3, (cout,), f32)}
-    out = []
     for name, (t, shape, dtype) in want.items():
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device:
             raise ValueError(f"K5: {name} must be {dtype} {shape} on {x.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        out.append(t.contiguous())
-    w1, w2, w3, b1, b2, b3 = out
-    if x.dtype == torch.bfloat16:
-        idx1, idx2 = _bf16_tile_index(cin, cout, x.device)
-        zero = w1.new_zeros(1)
-        return (x.contiguous(), torch.cat([zero, w1.reshape(-1)]).index_select(0, idx1.reshape(-1)),
-                b1, torch.cat([zero, w2.reshape(-1), w3.reshape(-1)]).index_select(0, idx2.reshape(-1)),
-                b2, b3)
-    return (x.contiguous(), w1.reshape(9, cin, cout), b1, w2.reshape(9, cout, cout), b2, w3, b3)
+    idx1, idx2 = _tile_index(cin, cout, x.dtype.itemsize, x.device)
+    zero = w1.new_zeros(1)
+    t1 = torch.cat([zero, w1.reshape(-1)]).index_select(0, idx1.reshape(-1)).reshape(idx1.shape)
+    t2 = torch.cat([zero, w2.reshape(-1), w3.reshape(-1)]).index_select(
+        0, idx2.reshape(-1)).reshape(idx2.shape)
+    if x.dtype == torch.float32:
+        t1, t2 = split_tf32(t1), split_tf32(t2)
+    return x.contiguous(), t1, b1.contiguous(), t2, b2.contiguous(), b3.contiguous()
 
 
 @functools.lru_cache(maxsize=64)
-def _bf16_tile_index(cin: int, cout: int, device: torch.device):
-    """Gather indices that lay the bfloat16 kernel's B tiles out (conv1's,
-    and conv2's with the shortcut's K appended) from [0, w1 flat] and
+def _tile_index(cin: int, cout: int, itemsize: int, device: torch.device):
+    """Gather indices that lay the kernel's B tiles out (conv1's, and
+    conv2's with the shortcut's K appended) from [0, w1 flat] and
     [0, w2 flat, w3 flat]: gemm_weights and weight_tiles only move and pad,
     so running them once on 1, 2, 3, ... (float64, exact) gives each tile
     element's source, 0 where they pad."""
-    conv1, (conv2, shortcut) = bf16_segments(cin, cout)
-    bn = bf16_bn(cout)
+    conv1, (conv2, shortcut) = segments(cin, cout, itemsize)
+    bn = tile_bn(cout, itemsize)
 
     def positions(shape, start):
         n = int(np.prod(shape))
@@ -326,10 +357,10 @@ def _bf16_tile_index(cin: int, cout: int, device: torch.device):
 
     n2 = 9 * cout * cout
     t1 = weight_tiles(gemm_weights(positions((3, 3, cin, cout), 1), conv1), bn,
-                      bf16_atoms(bn, conv1.kseg))
+                      stage_atoms(bn, conv1.kseg, itemsize), itemsize)
     t2 = weight_tiles(torch.cat([gemm_weights(positions((3, 3, cout, cout), 1), conv2),
                                  gemm_weights(positions((cin, cout), 1 + n2), shortcut)], dim=1),
-                      bn, bf16_atoms(bn, conv2.kseg + shortcut.kseg))
+                      bn, stage_atoms(bn, conv2.kseg + shortcut.kseg, itemsize), itemsize)
     return tuple(t.int().to(device) for t in (t1, t2))
 
 
@@ -348,13 +379,10 @@ def launch(*args) -> torch.Tensor:
     if y1.dtype != x.dtype or out.dtype != x.dtype:
         raise ValueError(f"K5: y1 and out must be {x.dtype}, got {y1.dtype} and {out.dtype}")
     index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    tiling = ()
-    if x.dtype == torch.bfloat16:
-        ints = bf16_tiling(bsz, h, w, cin, out.shape[-1], _sm_count(index)).ints()
-        tiling = (ints.ctypes.data,)
+    ints = tiling(bsz, h, w, cin, out.shape[-1], _sm_count(index), x.dtype.itemsize).ints()
     code = fns[x.dtype](
         *(t.data_ptr() for t in tensors), y1.data_ptr(), out.data_ptr(),
-        bsz, h, w, cin, out.shape[-1], *tiling, index,
+        bsz, h, w, cin, out.shape[-1], ints.ctypes.data, index,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if code != 0:

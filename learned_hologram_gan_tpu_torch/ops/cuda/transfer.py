@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -37,10 +38,13 @@ def apply_transfer_stack_reference(g0, w_grid, mask, distances) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
+def _kernel_fn(defines: Tuple[str, ...] = ()):
+    """(the C entry, the error-string function) of the build with
+    ``defines`` (the wrapper loads the plain build; only k5_ablation.py
+    asks for others)."""
     from .build import load_library
 
-    lib = load_library(KERNEL_NAME)
+    lib = load_library(KERNEL_NAME, defines)
     fn = lib.k4_transfer_stack
     fn.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]

@@ -12,9 +12,10 @@ import time
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bandwidth, f32 non-tensor
-# rate, dense bf16 tensor-core rate
+# rate, dense TF32 and bf16 tensor-core rates
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
 PEAK_BF16_FLOP_PER_S = 989e12
 # against their plain versions, relative to max |plain|: f32 FFT rounding
 # over a few 1024-point transforms is ~1e-6; H is computed in the same f32

@@ -12,9 +12,11 @@ max |plain|, 1e-4 at worst and 1e-5 at the 99.9th percentile (float32 FFT
 rounding over a few 1024-point transforms is ~1e-6; H is computed in the
 same f32 operation order on both sides).  K4 and K5 are held to the same
 bound: K4 repeats the plain version's float32 theta and differs only in
-sincosf against torch's cos/sin (~1 ulp); K5 sums the same float32 products
-as cuDNN with TF32 off, in another order (~1e-6 of the largest output over
-9 * Cin terms).  K5's bfloat16 variant is held to the bfloat16 bounds
+sincosf against torch's cos/sin (~1 ulp); K5 takes each float32 product as
+three TF32 products (split precision, each within ~2^-22 of the product)
+and sums them in float32, against cuDNN with TF32 off (a few 1e-7 of the
+largest output over 9 * Cin terms; one TF32 pass would miss the bound,
+tests/test_torch_k5_tiles.py).  K5's bfloat16 variant is held to the bfloat16 bounds
 derived in ``fused_smoke.py`` (9 u at worst, 2 u at p99.9, u = 2^-8), and
 the bfloat16 slices to those of ``card_check.py``.
 """
@@ -252,9 +254,10 @@ def test_train_step_option_on_card_matches_cpu(device, option, dtype):
     card_check.check_train_step(card_check.train_step_card_vs_cpu(device, dtype=dtype, **option))
 
 
-# (B, H, W, Cin, Cout): tile-aligned; H and W not multiples of the 8 x 32
-# tile with Cin != Cout; more output channels than one 64-channel tile and
-# more input channels than one 16-channel chunk, both ragged; enc_0's 4 -> 64
+# (B, H, W, Cin, Cout): 8 -> 8 channels; odd image sizes with Cin != Cout
+# (5 and 12 channels: 4- and 8-byte copies, a ragged 64-channel tile); more
+# output channels than one 64-channel tile and more input channels than one
+# atom (32 float32, 64 bfloat16 values), both ragged; enc_0's 4 -> 64
 K5_SHAPES = [(2, 16, 32, 8, 8), (3, 13, 37, 5, 12), (1, 20, 12, 40, 72), (2, 24, 40, 4, 64)]
 
 
@@ -306,14 +309,40 @@ def test_k5_bf16_matches_plain_version(device, shape):
 
 # (B, H, W, Cin, Cout): the full-width UNet's nine blocks at batch 2, then
 # the small fused generator's (card_check.FUSED: 48^2, base 4), whose conv2
-# segments of 9 x 32 and 9 x 16 values end off a 64-value K atom
-K5_BF16_UNET_SHAPES = ([(2, hw, hw, cin, cout) for _, hw, cin, cout in fused_smoke.UNET_BLOCKS]
-                       + [(2, 48 >> i, 48 >> i, max(4, 2 << i), 4 << i) for i in range(4)]
-                       + [(2, 3, 3, 32, 64)]
-                       + [(2, 48 >> i, 48 >> i, 8 << i, 4 << i) for i in reversed(range(4))])
+# segments of 9 x 32 and 9 x 16 values end off a 64-value bfloat16 K atom
+# (9 x 16 also off a 32-value float32 one)
+K5_UNET_SHAPES = ([(2, hw, hw, cin, cout) for _, hw, cin, cout in fused_smoke.UNET_BLOCKS]
+                  + [(2, 48 >> i, 48 >> i, max(4, 2 << i), 4 << i) for i in range(4)]
+                  + [(2, 3, 3, 32, 64)]
+                  + [(2, 48 >> i, 48 >> i, 8 << i, 4 << i) for i in reversed(range(4))])
 
 
-@pytest.mark.parametrize("shape", K5_BF16_UNET_SHAPES, ids=str)
+@pytest.mark.parametrize("shape", K5_UNET_SHAPES, ids=str)
+def test_k5_unet_blocks_match_plain_version(device, shape):
+    """K5's float32 entry (3xTF32) at the UNet's block shapes, on a
+    non-negative input (as the blocks see after a ReLU), within the float32
+    bounds; one launch of the entry per block."""
+    b, hw, _, cin, cout = shape
+    rng = np.random.default_rng(7)
+
+    def draw(*s, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(s)).astype(np.float32)).to(device)
+
+    x = draw(b, hw, hw, cin).abs()
+    args = (draw(3, 3, cin, cout, scale=(9 * cin) ** -0.5), draw(cout, scale=0.1),
+            draw(3, 3, cout, cout, scale=(9 * cout) ** -0.5), draw(cout, scale=0.1),
+            draw(cin, cout, scale=cin ** -0.5), draw(cout, scale=0.1))
+    before = conv_block.fused_residual_block.launches
+    got = conv_block.fused_residual_block(x, *args)
+    torch.cuda.synchronize()
+    assert conv_block.fused_residual_block.launches == before + 1
+    want = conv_block.residual_block_reference(x, *args)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (b, hw, hw, cout)
+    zeros = torch.zeros_like(want)
+    assert_rel_close(got, zeros, want, zeros)
+
+
+@pytest.mark.parametrize("shape", K5_UNET_SHAPES, ids=str)
 def test_k5_bf16_unet_blocks_match_plain_version(device, shape):
     """K5's bfloat16 entry at the UNet's block shapes, on a non-negative
     input (as the blocks see after a ReLU)."""

@@ -15,6 +15,8 @@ its module forward, the POH phasor bounds of PERF.md section 2 against JAX,
 and 1e-6 for the transfer stack (tests/test_pallas.py).
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -334,3 +336,64 @@ def test_transfer_stack_w_grid_matches_jax(rows, cols, ds, batch, tile_rows):
     plan = asm.make_plan(OpticsConfig(**o), distances=ds, device="cpu")
     np.testing.assert_array_equal(plan.w_grid.numpy(), np.asarray(jplan.w_grid))
     np.testing.assert_array_equal(plan.mask.numpy(), np.asarray(jplan.mask))
+
+
+K4_SOURCE = Path(transfer.__file__).resolve().parents[2] / "csrc" / "k4_transfer_stack.cu"
+K4_GROUP = 4  # csrc/k4_transfer_stack.cu: kGroup, the images of g0 a thread holds
+
+
+def k4_emulation(g0, w_grid, mask, dists, neg_two_pi):
+    """K4's loops in numpy, transcribed from transfer_stack_kernel: thread
+    idx < C * n_pos owns channel c = idx // n_pos and pixels V p .. V p +
+    V - 1, p = idx % n_pos (V = 2, or 1 where Rp * Cp is odd); for each
+    group of K4_GROUP images, each distance d computes H once per pixel,
+    theta = (neg_two_pi * z_d) * w in float32, and stores g0 * H * mask
+    for every image of the group.  Returns the output and how many times
+    each of its elements was written."""
+    b, c, rp, cp = g0.shape
+    num_d, s = len(dists), rp * cp
+    v = 2 if s % 2 == 0 else 1
+    n_pos = s // v
+    idx = np.arange(c * n_pos)
+    ch = idx // n_pos
+    px = (idx - ch * n_pos) * v
+    g0f, wf, mf = g0.reshape(-1), w_grid.reshape(-1), mask.reshape(-1)
+    out = np.zeros(b * num_d * c * s, dtype=np.complex64)
+    writes = np.zeros(out.size, dtype=np.int64)
+    f32 = np.float32
+    for e in range(v):
+        pix = px + e
+        w, m = wf[ch * s + pix], mf[pix]
+        for b0 in range(0, b, K4_GROUP):
+            for d in range(num_d):
+                theta = f32(f32(neg_two_pi) * f32(dists[d])) * w
+                hr, hi = np.cos(theta), np.sin(theta)
+                for j in range(min(K4_GROUP, b - b0)):
+                    g = g0f[((b0 + j) * c + ch) * s + pix]
+                    o = (((b0 + j) * num_d + d) * c + ch) * s + pix
+                    out[o] = ((g.real * hr - g.imag * hi) * m) + 1j * ((g.real * hi + g.imag * hr) * m)
+                    np.add.at(writes, o, 1)
+    return out.reshape(b, num_d, c, rp, cp), writes
+
+
+@pytest.mark.parametrize("batch,rows,cols,num_d", [(6, 16, 16, 3), (2, 5, 7, 2), (4, 8, 12, 20)])
+def test_transfer_stack_index_map_writes_each_output_once(batch, rows, cols, num_d):
+    """K4's thread-to-output map (two pixels a thread, or one on an odd
+    grid; images in groups of K4_GROUP, the last one partial) writes every
+    (b, d, c, pixel) once, and its loop in numpy matches the plain
+    version."""
+    src = K4_SOURCE.read_text()
+    assert f"constexpr int kGroup = {K4_GROUP};" in src
+    assert "const int v = plane_size % 2 == 0 ? 2 : 1;" in src
+    optics = OpticsConfig(rows=rows, cols=cols, pad_size=0, filter_radius_coefficient=0.45)
+    ds = np.linspace(-4e-4, 1e-3, num_d).astype(np.float32)
+    plan = asm.make_plan(optics, distances=ds, device="cpu")
+    rng = np.random.default_rng(71)
+    shape = (batch, 3, rows, cols)
+    g0 = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    got, writes = k4_emulation(g0, plan.w_grid.numpy(), plan.mask.numpy(), ds,
+                               np.float32(-2.0 * np.pi))
+    assert (writes == 1).all()
+    want = transfer.apply_transfer_stack_reference(torch.from_numpy(g0), plan.w_grid, plan.mask,
+                                                   plan.distances).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())

@@ -2,6 +2,8 @@
 counts behind the bounds ``chip_smoke.py`` reports, and the ablation
 script's reading of ptxas and of the blocks an SM holds."""
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -95,14 +97,54 @@ def test_ablation_builds_name_macros_the_sources_define():
 
 def test_k5_ablation_builds_name_macros_the_source_reads():
     """The same for K5's ablation builds, whose macros switch a part of
-    the bfloat16 kernel off (#ifdef) or drop it (#ifndef)."""
+    the kernel off (#ifdef) or drop it (#ifndef) in both element types (the
+    products and the stores in each type's consumer), and for K4's; the
+    loaders take the defines."""
     from learned_hologram_gan_tpu_torch import k5_ablation
 
-    src = open(spectral.__file__.rsplit("/ops/", 1)[0] + "/csrc/k5_residual_block.cu").read()
+    csrc = spectral.__file__.rsplit("/ops/", 1)[0] + "/csrc/"
+    src = open(csrc + "k5_residual_block.cu").read()
     macros = {d for defines in k5_ablation.BUILDS for d in defines}
-    assert macros == {"LHG_ABLATE_MMA", "LHG_ABLATE_A", "LHG_ABLATE_STORE"}
+    assert macros == {"LHG_ABLATE_MMA", "LHG_ABLATE_A", "LHG_ABLATE_B", "LHG_ABLATE_STORE"}
     for d in macros:
         assert f"#ifdef {d}" in src or f"#ifndef {d}" in src
+    assert src.count("#ifndef LHG_ABLATE_MMA") == src.count("#ifdef LHG_ABLATE_STORE") == 2
+    k4 = open(csrc + "k4_transfer_stack.cu").read()
+    assert {d for defines in k5_ablation.K4_BUILDS for d in defines} == {"LHG_ABLATE_SINCOS"}
+    assert "#ifdef LHG_ABLATE_SINCOS" in k4
+    from learned_hologram_gan_tpu_torch.ops.cuda import conv_block, transfer
+
+    for mod in (conv_block, transfer):
+        assert "defines" in inspect.signature(mod._kernel_fn.__wrapped__).parameters
+
+
+def test_k5_and_k4_bounds():
+    """K5 float32's bound counts three TF32 products a product at 495
+    TFLOP/s (4.52 ms for enc_0 + dec_1 at batch 16, 21.3 ms for the nine
+    blocks), beside the 67 TFLOP/s SIMT figure (11.14 and 52.4 ms); K5
+    bf16's stays its operations at 989 TFLOP/s; K4's training stack is
+    bound by its 2.01 GB of stores."""
+    from learned_hologram_gan_tpu_torch import fused_smoke as fs
+
+    def ms(blocks, itemsize, simt=False):
+        total = 0.0
+        for _, hw, cin, c in blocks:
+            nbytes, flops, peak = fs.k5_work(16, hw, hw, cin, c, itemsize)
+            if simt:
+                flops, peak = fs.k5_flops(16, hw, hw, cin, c), cm.PEAK_F32_FLOP_PER_S
+            t, kind = cm.bound_ms(nbytes, flops, peak)
+            assert kind == "operations"
+            total += t
+        return total
+
+    pair = (fs.UNET_BLOCKS[0], fs.UNET_BLOCKS[7])
+    assert ms(pair, 4) == pytest.approx(4.52, abs=0.01)
+    assert ms(fs.UNET_BLOCKS, 4) == pytest.approx(21.3, abs=0.05)
+    assert ms(pair, 4, simt=True) == pytest.approx(11.142, abs=0.001)
+    assert ms(fs.UNET_BLOCKS, 4, simt=True) == pytest.approx(52.4, abs=0.05)
+    assert ms(fs.UNET_BLOCKS, 2) == pytest.approx(3.549, abs=0.001)
+    nbytes, flops = fs.k4_work(4, 20, 1024 * 1024)
+    assert cm.bound_ms(nbytes, flops) == (pytest.approx(0.636, abs=0.001), "bytes")
 
 
 def test_build_keeps_the_log_of_a_cached_library(tmp_path, monkeypatch):
