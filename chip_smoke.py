@@ -51,9 +51,18 @@ configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
   9. bfloat16 training through ``training_model.main --use_gan --dtype
      bfloat16 --perceptual random``, with the same four step options, the
      default step's split also under ``torch.profiler``;
-  10. the three paths at a small size on the card (kernels) against the CPU
+  10. the two-stage pretrain -> fine-tune workflow at the quality run's
+     configuration (``learned_hologram_gan_tpu_torch/pretrain_smoke.py``):
+     ``train_rgbd2ap`` and ``train_ap2poh`` (K1 conj_h and K3, forward and
+     adjoint), each 2 epochs of 2 steps written as ``.msgpack``, then
+     ``training_model --pretrained_part1/2 --freeze_part1 --resume_dir``
+     for 1 epoch and again to 2, which resumes, beside an uninterrupted
+     2-epoch run: launches held to what the code makes, part 1 and the
+     restored state bit for bit, each stage's steps/s and peak memory;
+  11. the three paths at a small size on the card (kernels) against the CPU
      (plain versions), same weights and draws (``card_check``), the train
-     step with each of the four options, in float32 and in bfloat16.
+     step with each of the four options, in float32 and in bfloat16, and a
+     stage-2 pretraining step.
 
 It raises on any failure.  It prints the kernels' JSON line and then, as
 its last line, ``{"ok": true, "device": {...}}``.  It exits non-zero at once
@@ -366,6 +375,12 @@ def phase_small_vs_cpu(dtype):
           "K5 launches {k5_launches} (polyphase {k5_launches_polyphase})".format(**stats),
           flush=True)
     card_check.check_fused(stats)
+    if dtype == "float32":
+        stats = card_check.stage2_step_card_vs_cpu("cuda")
+        print("small stage-2 pretraining step, card vs CPU: loss {loss[0]:.6g} / {loss[1]:.6g}; "
+              "gradients {grad_rel:.2e} of max|g|; launches K1 {k1_modes}, K2 {k2_launches}, "
+              "K3 {k3_launches}".format(**stats), flush=True)
+        card_check.check_stage2_step(stats)
 
 
 def main():
@@ -374,7 +389,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr, flush=True)
         return 1
-    from learned_hologram_gan_tpu_torch import bf16_smoke, fft_ablation, fused_smoke, train_smoke
+    from learned_hologram_gan_tpu_torch import (bf16_smoke, fft_ablation, fused_smoke, pretrain_smoke,
+                                                train_smoke)
     from learned_hologram_gan_tpu_torch.ops.cuda import build, conv_block, fft, spectral, transfer
 
     t0 = time.perf_counter()
@@ -470,6 +486,13 @@ def main():
             transfer.reset_launch_counts()
             runs.append(train_smoke.training_path(card, "bfloat16", **option, profile=not option))
             k4_launches += transfer.apply_transfer_stack.launches
+    with Phase("main path: pretrain -> fine-tune at full width (stage 1, stage 2, "
+               "--freeze_part1 --resume_dir twice)"):
+        transfer.reset_launch_counts()
+        pretrain = pretrain_smoke.workflow(card)
+        k4_launches += transfer.apply_transfer_stack.launches
+    k1["stage2_launches"] = pretrain["stage2"]["launches"]["k1"]["conj_h"]
+    train_kernels["k3"]["stage2_launches"] = pretrain["stage2"]["launches"]["k3"]
     if k4_launches:
         raise AssertionError(f"K4 launched {k4_launches} times on the main paths, want 0")
 
@@ -481,6 +504,10 @@ def main():
     for r in runs:
         print(f"  {r['label']:45s} {r['steps_per_s']:.3f} steps/s, peak {r['peak_gib']:.2f} GiB; "
               + ", ".join(f"{k} {v:.1f} ms" for k, v in r["split"].items()) + f" [{card}]", flush=True)
+    for stage in ("stage1", "stage2"):
+        r = pretrain[stage]
+        print(f"  pretraining {stage}, batch 4: {r['steps_per_s']:.3f} steps/s, peak "
+              f"{r['peak_gib']:.2f} GiB [{card}]", flush=True)
     print(f"total wall {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)
     for key in ("k2", "k2_two_h"):

@@ -26,6 +26,13 @@ weights and non-trivial BatchNorm statistics on the card and on the CPU;
 :func:`check_fused` holds the POHs to the phasor bounds above and counts
 K5's launches.
 
+:func:`stage2_step_card_vs_cpu` takes one stage-2 pretraining loss and its
+gradients (``train/pretrain.ap2poh_loss``: the sigmoid low-pass, AP2POH,
+the spectrum loss) on the card and on the CPU from the same weights and
+batch; :func:`check_stage2_step` holds the loss to the metric bound, the
+gradients to the gradient bound below, and the launches to what the code
+makes (K1 ``conj_h`` once, K3 twelve times, K2 never).
+
 Each takes ``dtype``.  In ``"bfloat16"`` both sides run the bfloat16
 generator (and critic) and differ where a float32 accumulation order flips
 a bfloat16 rounding, so they are held to bfloat16 bounds, derived below
@@ -77,6 +84,13 @@ TRAIN_LR = 1e-3  # Adam's rate for both nets in the train-step check
 # 48 down to 3), two images; K5 runs all nine residual blocks (four
 # encoder levels, the bottleneck, four decoder levels), seven with polyphase
 FUSED = dict(hw=48, pad=8, unet_base=4, batch=2)
+# one stage-2 pretraining step: 32 x 32 in a 64 x 64 grid (K1 and K3 on the
+# card), batch 2, the quality run's filter 0.45, alpha and beta
+STAGE2 = dict(hw=32, pad=16, batch=2, frc=0.45, alpha=1e-3, beta=1e-5)
+# K3 launches of one stage-2 train step, two passes a 2-D transform: the
+# low-pass's fft2 and ifft2, the spectrum loss's fft2 and ifft2, and their
+# two adjoints in the backward (the low-pass runs without gradient)
+STAGE2_K3_PER_STEP = 12
 
 U_BF16 = 2.0**-8
 # bfloat16, card against CPU.  POHs: the JAX package's bfloat16 POH gate,
@@ -493,3 +507,66 @@ def check_fused(stats: dict) -> None:
                         f"{stats['k5_launches_polyphase']}), want 9 (7)")
     if problems:
         raise AssertionError("fused path: card and CPU disagree: " + "; ".join(problems))
+
+
+def stage2_step_card_vs_cpu(device: str | torch.device = "cuda", seed: int = 9) -> dict:
+    """One stage-2 pretraining loss and its parameter gradients on the CPU
+    (plain versions) and on ``device`` (K1, K3) from the same seeded AP2POH
+    weights and (amp, phase) batch; returns both losses, the worst
+    gradient difference relative to the largest |g|, and the card run's
+    launches."""
+    import copy
+
+    from .config import OpticsConfig
+    from .models import AP2POH
+    from .nn.blocks import init_weights
+    from .ops import asm
+    from .ops.cuda import fft, spectral
+    from .train.pretrain import ap2poh_loss
+
+    s2 = STAGE2
+    rng = np.random.default_rng(seed)
+    shape = (s2["batch"], 3, s2["hw"], s2["hw"])
+    amp = rng.random(shape, dtype=np.float32)
+    phs = (2 * np.pi * rng.random(shape)).astype(np.float32)
+    model = AP2POH()
+    init_weights(model, torch.Generator().manual_seed(seed))
+    optics = OpticsConfig(rows=s2["hw"], cols=s2["hw"], pad_size=s2["pad"],
+                          filter_radius_coefficient=s2["frc"])
+    losses, grads = [], []
+    for dev in ("cpu", str(device)):
+        m = copy.deepcopy(model).to(dev)
+        plan = asm.make_plan(optics, distances=[1e-3], device=dev)
+        batch = (torch.from_numpy(amp).to(dev), torch.from_numpy(phs).to(dev))
+        spectral.reset_launch_counts()
+        fft.fft_axis.launches = 0
+        loss = ap2poh_loss(m, plan, batch, s2["frc"], s2["alpha"], s2["beta"])
+        g = torch.autograd.grad(loss, list(m.parameters()))
+        losses.append(float(loss.detach()))
+        grads.append([t.cpu() for t in g])
+    scale = max(float(t.abs().max()) for t in grads[0])
+    return dict(
+        loss=tuple(losses),
+        grad_rel=max(float((a - b).abs().max()) for a, b in zip(*grads)) / scale,
+        k1_modes=dict(spectral.row_pass.launches_by_mode),
+        k2_launches=spectral.row_adjoint.launches, k3_launches=fft.fft_axis.launches,
+    )
+
+
+def check_stage2_step(stats: dict) -> None:
+    """Raise ``AssertionError`` naming every bound that ``stats`` (from
+    :func:`stage2_step_card_vs_cpu`) breaks."""
+    cpu, card = stats["loss"]
+    problems = []
+    if not (np.isfinite(cpu) and np.isfinite(card)) or abs(card - cpu) > METRIC_RTOL * abs(cpu):
+        problems.append(f"loss: CPU {cpu:.6g}, card {card:.6g}")
+    if not stats["grad_rel"] <= GRAD_TOL:
+        problems.append(f"grad_rel {stats['grad_rel']:.3e} > {GRAD_TOL:g}")
+    if stats["k1_modes"] != {"conj_h": 1}:
+        problems.append(f"K1 launched {stats['k1_modes']}, want {{'conj_h': 1}}")
+    if stats["k2_launches"] != 0:
+        problems.append(f"K2 launched {stats['k2_launches']} times, want 0")
+    if stats["k3_launches"] != STAGE2_K3_PER_STEP:
+        problems.append(f"K3 launched {stats['k3_launches']} times, want {STAGE2_K3_PER_STEP}")
+    if problems:
+        raise AssertionError("stage-2 step: card and CPU disagree: " + "; ".join(problems))

@@ -57,6 +57,28 @@ class ImgDepthAmpPhsDataset(_MemmapDataset):
         return rgbd, np.asarray(self.amp[idx]), np.asarray(self.phs[idx])
 
 
+class AmpPhsDataset(_MemmapDataset):
+    """(amp, 2*pi*phs) pairs for AP2POH pretraining (reference
+    data_loader.py:55-84): the phase is scaled to radians here, once."""
+
+    def __init__(
+        self,
+        amp_path: str,
+        phs_path: str,
+        samples_num: int = 3800,
+        channels_num: int = 3,
+        height: int = 192,
+        width: int = 192,
+    ):
+        shape = (samples_num, channels_num, height, width)
+        self.num_samples = samples_num
+        self.amp = _open_bin(amp_path, shape)
+        self.phs = _open_bin(phs_path, shape)
+
+    def get(self, idx):
+        return np.asarray(self.amp[idx]), 2.0 * np.pi * np.asarray(self.phs[idx])
+
+
 class ImgDepthDataset(_MemmapDataset):
     """RGBD samples for inference (reference data_loader.py:87-123), (4, H, W)."""
 

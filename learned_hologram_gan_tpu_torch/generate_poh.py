@@ -14,9 +14,10 @@ asked otherwise)::
         --poh_output_path poh.npy --propagate --num_intervals 3 \\
         --output_image_dir recon
 
-``--model_path`` names a torch ``state_dict`` of the port's Generator (for
-example written from JAX weights with ``convert.generator_state_dict``).
-Reading the JAX package's flax ``.msgpack`` files is not ported yet.
+``--model_path`` names the generator's weights: a flax ``.msgpack`` file,
+as the JAX package and the port's trainer write them (read by
+``train/flax_msgpack.py``, carried by ``convert.py``), or a torch
+``state_dict`` of the port's Generator.
 """
 
 from __future__ import annotations
@@ -83,6 +84,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from .models import make_generator, make_generator_plan
     from .ops import asm
     from .train import build_infer_fn
+    from .train import checkpoint as ckpt_lib
     from .utils import tensor_normalizor_2d
     from .utils.plotting import multi_sample_plotter
 
@@ -117,14 +119,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     gen_plan = make_generator_plan(gen_config, device=device)
 
     if args.model_path is not None and os.path.exists(args.model_path):
-        if args.model_path.endswith(".msgpack"):
-            raise NotImplementedError(
-                "reading flax .msgpack checkpoints is not ported yet; convert "
-                "them with learned_hologram_gan_tpu_torch.convert.generator_state_dict "
-                "and save a torch state_dict"
-            )
-        state = torch.load(args.model_path, map_location=device, weights_only=True)
-        generator.load_state_dict(state)
+        ckpt_lib.load_weights(args.model_path, generator)
         print(f"Generator loaded from {args.model_path}")
     elif args.model_path is not None:
         print(f"WARNING: model path {args.model_path} not found; using random init")

@@ -38,6 +38,8 @@ class PropagatorPlan:
       w_grid:    (C, Rp, Cp) float32 per-wavelength w values.
       mask:      (Rp, Cp) float32 circular low-pass (the imaging aperture,
                  reference :60-62, :141-153).
+      radial_grid: (Rp, Cp) float32 fftfreq radius grid of the sigmoid
+                 (differentiable) low-pass (reference :315-319, :426-436).
       H:         (D, C, Rp, Cp) complex64 cached transfer functions, or None
                  without a distance stack.
       distances: (D,) float32 fixed distance stack, or None.
@@ -45,6 +47,7 @@ class PropagatorPlan:
 
     w_grid: torch.Tensor
     mask: torch.Tensor
+    radial_grid: torch.Tensor
     H: Optional[torch.Tensor]
     distances: Optional[torch.Tensor]
 
@@ -86,6 +89,7 @@ def make_plan(
     ).to(device)
     radius = min(rp, cp) * optics.filter_radius_coefficient
     mask = masks_lib.circular_frequency_mask(rp, cp, radius).to(device)
+    radial_grid = masks_lib.radial_frequency_grid(rp, cp).to(device)
 
     h = None
     dist = None
@@ -98,6 +102,7 @@ def make_plan(
     return PropagatorPlan(
         w_grid=w_grid,
         mask=mask,
+        radial_grid=radial_grid,
         H=h,
         distances=dist,
         rows=optics.rows,
@@ -323,6 +328,41 @@ def propagate_poh2ap_forward(
     g0 = _fft2(pad(plan, g))
     gz = crop(plan, _ifft2(g0 * (_fixed_h(plan) * plan.mask)))
     return gz.abs(), _angle(gz)
+
+
+def _sigmoid_mask(plan: PropagatorPlan, filter_radius_coefficient) -> torch.Tensor:
+    radius = min(plan.padded_rows, plan.padded_cols) * filter_radius_coefficient
+    return masks_lib.differentiable_circular_mask(plan.radial_grid, radius)
+
+
+def propagate_poh2ap_forward_with_spectrum_loss(
+    plan: PropagatorPlan,
+    poh: torch.Tensor,
+    filter_radius_coefficient: torch.Tensor | float = 0.5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """POH -> (amp, phase, spectrum_loss) through the sigmoid-edged low-pass
+    (reference :394-412): ``spectrum_loss = mean(|G0| - |G_filtered|)`` over
+    the full padded spectrum, the energy the POH puts outside the pass
+    band.  Runs on :func:`_fft2`/:func:`_ifft2` (K3 on a CUDA tensor, its
+    adjoint in the backward)."""
+    g0 = _fft2(pad(plan, field(torch.ones_like(poh), poh)))
+    gz_f = g0 * (_fixed_h(plan) * _sigmoid_mask(plan, filter_radius_coefficient))
+    spectrum_loss = torch.mean(g0.abs() - gz_f.abs())
+    gz = crop(plan, _ifft2(gz_f))
+    return gz.abs(), _angle(gz), spectrum_loss
+
+
+def differentiable_lowpass_filter(
+    plan: PropagatorPlan,
+    amp: torch.Tensor,
+    phs: torch.Tensor,
+    filter_radius_coefficient: torch.Tensor | float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Low-pass an amp/phase pair through the sigmoid-edged mask, without
+    propagating (reference AP2POH.py:75-84); K3 on a CUDA tensor."""
+    g = _ifft2(_fft2(pad(plan, field(amp, phs))) * _sigmoid_mask(plan, filter_radius_coefficient))
+    g = crop(plan, g)
+    return g.abs(), _angle(g)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""Training: state, steps, checkpoints and the Watermelon trainer."""
+"""Training: state, steps, checkpoints, per-stage pretraining and the
+Watermelon trainer."""
 
-from . import checkpoint
+from . import checkpoint, flax_msgpack, pretrain
+from .pretrain import ReduceLROnPlateau, train_ap2poh, train_rgbd2ap
 from .state import TrainState, build_modules, create_train_state
 from .steps import build_eval_step, build_infer_fn, build_train_step, gradient_penalty
 from .watermelon import (
@@ -15,6 +17,7 @@ from .watermelon import (
 )
 
 __all__ = [
+    "ReduceLROnPlateau",
     "TrainState",
     "Watermelon",
     "build_eval_step",
@@ -23,7 +26,11 @@ __all__ = [
     "build_train_step",
     "checkpoint",
     "create_train_state",
+    "flax_msgpack",
     "gradient_penalty",
+    "pretrain",
+    "train_ap2poh",
+    "train_rgbd2ap",
     "watermelon",
     "watermelon_without_GAN",
     "watermelon_without_GAN_and_focal_sincos_phase_loss",

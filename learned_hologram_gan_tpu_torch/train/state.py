@@ -5,6 +5,13 @@ the port keeps the two networks, their ``torch.optim.Adam`` optimizers (the
 update rule of ``optax.adam``: eps outside the square root), the step
 count and a CPU ``torch.Generator`` for the random draws in one mutable
 object that the train step updates in place.
+
+``freeze_part1`` trains stage 2 against a frozen stage 1 (reference
+RGBD2AP.py:37-41): part 1's parameters stop requiring gradients and
+``opt_G`` holds only the others, as the JAX package's ``multi_transform``
+keeps no Adam state for ``part1`` and zeroes its updates.  Part 1's
+BatchNorm running statistics still update in train mode, as in the JAX
+package (``train/watermelon.py:158-162``).
 """
 
 from __future__ import annotations
@@ -49,21 +56,24 @@ def create_train_state(
     lr_D: float,
     device: str | torch.device = "cuda",
     vgg: Optional[VGG19Features] = None,
+    freeze_part1: bool = False,
 ) -> TrainState:
     """Initialize both networks from ``seed`` on the CPU (the JAX package's
     schemes, torch's numbers), move them to ``device`` in train mode and
-    build their Adam optimizers.  The same generator then draws the step's
-    random numbers."""
+    build their Adam optimizers, the generator's without part 1 when
+    ``freeze_part1``.  The same generator then draws the step's random
+    numbers."""
     rng = torch.Generator().manual_seed(seed)
     init_weights(generator, rng)
     init_discriminator(discriminator, rng)
     generator.to(device).train()
     discriminator.to(device).train()
+    generator.part1.requires_grad_(not freeze_part1)
     return TrainState(
         step=0,
         generator=generator,
         discriminator=discriminator,
-        opt_G=torch.optim.Adam(generator.parameters(), lr=lr_G),
+        opt_G=torch.optim.Adam([p for p in generator.parameters() if p.requires_grad], lr=lr_G),
         opt_D=torch.optim.Adam(discriminator.parameters(), lr=lr_D),
         rng=rng,
         vgg=vgg,

@@ -4,9 +4,13 @@ checkpoints, the loss/metric history and the visualizations.
 
 Constructor and ``train`` keep the JAX package's arguments.  The ones this
 port does not support yet (remat, uncached H, spatial meshes, polyphase
-level 0, column-pad overrides, part-wise pretraining and freezing,
-full-state resume) raise ``NotImplementedError`` naming the argument and its CLI flag.
-The history JSON keeps the reference's key layout (watermelon.py:169-194).
+level 0, column-pad overrides) raise ``NotImplementedError`` naming the
+argument and its CLI flag.  The two-stage pretrain -> fine-tune workflow
+runs as in the JAX package: per-part pretrained weights
+(``pretrained_part1/2_path``, flax ``.msgpack`` or torch files),
+``freeze_part1``, and full-state checkpoints in ``resume_dir`` with
+resume-from-latest.  The history JSON keeps the reference's key layout
+(watermelon.py:169-194).
 The ablation subclasses of the reference are factory functions, as in the
 JAX package.
 """
@@ -90,9 +94,6 @@ class Watermelon:
             (spatial_mesh is not None, "spatial_mesh", "spatial_mesh_devices"),
             (polyphase_level0, "polyphase_level0", "polyphase_level0"),
             (pad_cols_override is not None, "pad_cols_override", None),
-            (freeze_part1, "freeze_part1", "freeze_part1"),
-            (pretrained_part1_path is not None, "pretrained_part1_path", "pretrained_part1"),
-            (pretrained_part2_path is not None, "pretrained_part2_path", "pretrained_part2"),
         ]
         for bad, name, flag in refused:
             if bad:
@@ -145,6 +146,11 @@ class Watermelon:
 
         self.pretrained_model_path_G = pretrained_model_path_G
         self.pretrained_model_path_D = pretrained_model_path_D
+        # per-part pretrained weights for the two-stage pretrain -> fine-tune
+        # workflow (reference generator.py:26-28 / RGBD2AP.py:37-41)
+        self.pretrained_part1_path = pretrained_part1_path
+        self.pretrained_part2_path = pretrained_part2_path
+        self.freeze_part1 = freeze_part1
         self.state: Optional[TrainState] = None
         self.infer_fn = build_infer_fn(self.generator)
         self.loss_cfg: Optional[LossConfig] = None
@@ -153,7 +159,8 @@ class Watermelon:
     # ------------------------------------------------------------------
     def _init_state(self, seed: int, lr_G: float, lr_D: float) -> None:
         self.state = create_train_state(
-            seed, self.generator, self.discriminator, lr_G, lr_D, self.device, self.vgg
+            seed, self.generator, self.discriminator, lr_G, lr_D, self.device, self.vgg,
+            freeze_part1=self.freeze_part1,
         )
         if self.pretrained_model_path_G:
             ckpt_lib.load_generator(self.state, self.pretrained_model_path_G)
@@ -161,6 +168,10 @@ class Watermelon:
         if self.pretrained_model_path_D:
             ckpt_lib.load_discriminator(self.state, self.pretrained_model_path_D)
             print(f"Discriminator loaded from {self.pretrained_model_path_D}")
+        if self.pretrained_part1_path:
+            ckpt_lib.load_generator_part(self.state, self.pretrained_part1_path, "part1")
+        if self.pretrained_part2_path:
+            ckpt_lib.load_generator_part(self.state, self.pretrained_part2_path, "part2")
 
     # ------------------------------------------------------------------
     def train(
@@ -190,6 +201,7 @@ class Watermelon:
         seed: int = 122731,
         resume_dir: Optional[str] = None,
         start_epoch: int = 0,
+        resume_data_fast_forward: bool = True,
     ) -> Dict[str, Any]:
         """Full GAN training loop (reference watermelon.train, :92-416).
 
@@ -198,9 +210,16 @@ class Watermelon:
         or reusable iterables.  The two ``step_scheduler_*_gamma`` arguments
         are accepted for flag parity and, like the reference's commented-out
         schedulers, unused.
+
+        ``resume_dir`` holds full-state checkpoints (both nets, both Adam
+        states, the random draws' generator, the step) and the history,
+        written at every epoch checkpoint and at the end (the newest 3
+        kept); a restart with the same ``resume_dir`` restores the latest
+        and fast-forwards the (deterministic) loaders past the batches
+        already trained, bit for bit the uninterrupted run.  With
+        ``start_epoch`` and ``resume_data_fast_forward=False`` the caller
+        positions the loaders for ``start_epoch`` instead (chunked runs).
         """
-        if resume_dir is not None:
-            _refuse("resume_dir", "resume_dir")
         if save_path_G is None:
             print("!!!!!!The save path of the generator is not specified, "
                   "the model will not be saved!!!!!!")
@@ -246,10 +265,22 @@ class Watermelon:
         # for the step just queued on the device
         pending_metrics = None
 
+        start_step = 0
+        if resume_dir is not None:
+            history, start_step = self._resume(resume_dir, history)
+            n_batch_last = start_step
+            if start_step and not resume_data_fast_forward:
+                # loaders are caller-positioned for start_epoch
+                n_batch = start_step
+                if history["n_train"]:
+                    n_train = int(history["n_train"][-1])
+
         for epoch in range(start_epoch, epoch_num):
             for n_batch_in_epoch, batch in enumerate(self._epoch(data_loader_train)):
                 n_batch += 1
                 n_train += int(batch[0].shape[0])
+                if n_batch <= start_step:
+                    continue  # trained before the restart
                 self.state, metrics = train_step(self.state, batch, self.gen_plan, self.multi_plan)
                 if pending_metrics is not None:
                     for k in train_acc:
@@ -272,7 +303,7 @@ class Watermelon:
                     self._visualize(visualization_RGBD_AP, save_path_img,
                                     f"epoch {epoch}, batch {n_batch_in_epoch + 1}")
 
-            if epoch % checkpoint_iterval == 0 and n_batch > 0:
+            if epoch % checkpoint_iterval == 0 and n_batch > start_step:
                 if save_path_G is not None:
                     p = ckpt_lib.epoch_path(save_path_G, epoch)
                     ckpt_lib.save_generator(self.state, p)
@@ -284,6 +315,13 @@ class Watermelon:
                 if loss_metrics_file is not None:
                     self._save_history(history, loss_metrics_file)
                     print(f"losses and metrics saved to {loss_metrics_file}")
+                if resume_dir is not None:
+                    # the write overlaps the next epoch; it is renamed into
+                    # place when complete, so a restore never sees it partial
+                    p = ckpt_lib.save_train_state(self.state, resume_dir, wait=False)
+                    self._save_history(history, os.path.join(resume_dir, "history.json"))
+                    ckpt_lib.prune_checkpoints(resume_dir, keep=3)
+                    print(f"Full train state saving (async) to {p}")
                 if visualization_RGBD_AP is not None:
                     self._visualize(visualization_RGBD_AP, save_path_img, f"epoch {epoch}")
 
@@ -296,7 +334,45 @@ class Watermelon:
         if loss_metrics_file is not None:
             self._save_history(history, loss_metrics_file)
             print(f"losses and metrics saved to {loss_metrics_file}")
+        if resume_dir is not None and n_batch > start_step:
+            ckpt_lib.save_train_state(self.state, resume_dir)
+            self._save_history(history, os.path.join(resume_dir, "history.json"))
+            ckpt_lib.prune_checkpoints(resume_dir, keep=3)
+        ckpt_lib.wait_for_saves()
         return history
+
+    def _resume(self, resume_dir: str, history: Dict[str, Any]) -> Tuple[Dict[str, Any], int]:
+        """Stamp or check ``resume_dir``'s ``meta.json``, then restore the
+        latest checkpoint, if any, and its history.  Returns the history and
+        the restored step (0 for a fresh start)."""
+        # freeze_part1 changes what opt_G holds (no part-1 state), so a
+        # checkpoint of the other setting cannot load; name the flag rather
+        # than fail inside the optimizer's load_state_dict
+        meta_path = os.path.join(resume_dir, "meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            if meta.get("freeze_part1") != self.freeze_part1:
+                raise ValueError(
+                    f"resume_dir {resume_dir!r} holds checkpoints written with "
+                    f"freeze_part1={meta.get('freeze_part1')}, but this trainer was built "
+                    f"with freeze_part1={self.freeze_part1}. The generator optimizer's state "
+                    "differs between the two settings, so the checkpoint cannot be restored; "
+                    "re-run with the matching --freeze_part1 setting or point resume_dir at "
+                    "a fresh directory."
+                )
+        else:
+            os.makedirs(resume_dir, exist_ok=True)
+            with open(meta_path, "w") as f:
+                json.dump({"freeze_part1": self.freeze_part1}, f)
+        if ckpt_lib.restore_latest(resume_dir, self.state) is None:
+            return history, 0
+        hist_path = os.path.join(resume_dir, "history.json")
+        if os.path.exists(hist_path):
+            with open(hist_path) as f:
+                history = json.load(f)
+        print(f"Resumed training from {resume_dir} at step {self.state.step}")
+        return history, self.state.step
 
     # ------------------------------------------------------------------
     @staticmethod

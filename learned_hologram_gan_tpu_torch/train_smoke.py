@@ -324,21 +324,26 @@ def _counts():
                 k3=fft.fft_axis.launches)
 
 
-def expected_launches(two_h_hat):
+def expected_launches(two_h_hat, freeze_part1=False, steps=STEPS, visualizations=1):
     """K1 and K2 launches by mode and K3's (one launch per pass, two per 2-D
-    transform) that the code makes in ``training_model.main``'s STEPS steps
-    and its end-of-epoch visualization (AP2POH, then the POH at 1 mm), and
-    in one eval step.  A step runs AP2POH (K1 conj_h; K2 in the backward)
-    and then either the two-H reconstruction, K1 twice in field+per_plane
-    mode and K2 once, no K3; or the composed one: two fft2 (K3), K1 once in
-    from_spectrum+per_plane mode, K2 once and fft2's adjoint (K3).  The
-    eval step: AP2POH, two fft2, the 20-distance stack."""
+    transform) that the code makes in ``training_model.main``'s ``steps``
+    steps and its end-of-epoch ``visualizations`` (AP2POH, then the POH at
+    1 mm), and in one eval step.  A step runs AP2POH (K1 conj_h; K2 in the
+    backward, unless ``freeze_part1`` leaves AP2POH's input without
+    gradient) and then either the two-H reconstruction, K1 twice in
+    field+per_plane mode and K2 once, no K3; or the composed one: two fft2
+    (K3), K1 once in from_spectrum+per_plane mode, K2 once and fft2's
+    adjoint (K3).  The eval step: AP2POH, two fft2, the 20-distance
+    stack."""
+    vis = visualizations
     if two_h_hat:
-        main = dict(k1={"conj_h": STEPS + 1, "field+per_plane": 2 * STEPS, "field": 1},
-                    k2={"conj_h": STEPS, "field+per_plane": STEPS}, k3=0)
+        main = dict(k1={"conj_h": steps + vis, "field+per_plane": 2 * steps, "field": vis},
+                    k2={"conj_h": steps, "field+per_plane": steps}, k3=0)
     else:
-        main = dict(k1={"conj_h": STEPS + 1, "from_spectrum+per_plane": STEPS, "field": 1},
-                    k2={"conj_h": STEPS, "from_spectrum+per_plane": STEPS}, k3=6 * STEPS)
+        main = dict(k1={"conj_h": steps + vis, "from_spectrum+per_plane": steps, "field": vis},
+                    k2={"conj_h": steps, "from_spectrum+per_plane": steps}, k3=6 * steps)
+    if freeze_part1:
+        del main["k2"]["conj_h"]
     return main, dict(k1={"conj_h": 1, "from_spectrum": 1}, k2={}, k3=4)
 
 

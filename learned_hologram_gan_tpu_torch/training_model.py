@@ -15,12 +15,20 @@ non-adversarial variant; ``--use_gan`` runs the full WGAN-GP loop::
         --loss_metrics_file out/history.json --save_path_img out/imgs \\
         --use_gan --perceptual random --epoch_num 1
 
-Checkpoints are torch ``state_dict`` files.  Flags of the JAX package that
-the port does not support yet (``--mesh_devices``,
-``--spatial_mesh_devices``, ``--remat``, ``--no_cache_h``,
-``--polyphase_level0``, ``--resume_dir``, ``--freeze_part1``,
-``--pretrained_part1/2``, ``--device_resident_data``) raise
-``NotImplementedError`` naming the flag.
+Checkpoint paths ending in ``.msgpack`` (``--save_path_G/D``,
+``--pretrained_G/D``, ``--pretrained_part1/2``) are flax files the JAX
+package reads and writes; others are torch ``state_dict`` files.  The
+fine-tune stage of the two-stage workflow takes the stage files that
+``train/pretrain.py`` writes::
+
+    ... --pretrained_part1 rgbd2ap.msgpack --pretrained_part2 ap2poh.msgpack \
+        --freeze_part1 --resume_dir out/resume
+
+``--resume_dir`` keeps full-state checkpoints there and resumes from the
+latest on a restart.  Flags of the JAX package that the port does not
+support yet (``--mesh_devices``, ``--spatial_mesh_devices``, ``--remat``,
+``--no_cache_h``, ``--polyphase_level0``, ``--device_resident_data``)
+raise ``NotImplementedError`` naming the flag.
 """
 
 from __future__ import annotations
@@ -86,17 +94,19 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--unet_base_features', type=int, default=64,
                         help="UNet width multiplier (reference architecture = 64).")
     parser.add_argument('--pretrained_G', type=str, default=None,
-                        help="Whole-generator pretrained state_dict (reference watermelon.py:84-90).")
+                        help="Whole-generator pretrained weights, flax .msgpack or torch state_dict "
+                             "(reference watermelon.py:84-90).")
     parser.add_argument('--pretrained_D', type=str, default=None,
-                        help="Discriminator pretrained state_dict.")
+                        help="Discriminator pretrained weights (.msgpack or state_dict).")
     parser.add_argument('--pretrained_part1', type=str, default=None,
-                        help="Stage-1 (RGBD2AP) pretrained weights (not ported yet).")
+                        help="Stage-1 (RGBD2AP) pretrained weights, as train/pretrain.py writes them.")
     parser.add_argument('--pretrained_part2', type=str, default=None,
-                        help="Stage-2 (AP2POH) pretrained weights (not ported yet).")
+                        help="Stage-2 (AP2POH) pretrained weights, as train/pretrain.py writes them.")
     parser.add_argument('--freeze_part1', action='store_true',
-                        help="Freeze the stage-1 parameters during fine-tuning (not ported yet).")
+                        help="Freeze the stage-1 parameters during fine-tuning.")
     parser.add_argument('--resume_dir', type=str, default=None,
-                        help="Directory for full-train-state checkpoints (not ported yet).")
+                        help="Directory for full-train-state checkpoints; a restart resumes from "
+                             "the latest.")
     parser.add_argument('--critic_batching', type=str, default='pair', choices=['separate', 'pair', 'full'],
                         help="WGAN-GP critic apply structure per iteration: 'separate' (real, fake and "
                              "penalty applies), 'pair' (one apply on [real; fake]) or 'full' (one apply on "
@@ -123,7 +133,6 @@ def _refuse_unported(args) -> None:
     unported = [
         (args.mesh_devices, "--mesh_devices"),
         (args.device_resident_data, "--device_resident_data"),
-        (args.resume_dir is not None, "--resume_dir"),
     ]
     for bad, flag in unported:
         if bad:
@@ -229,6 +238,7 @@ def main(argv: Optional[Sequence[str]] = None):
         step_scheduler_D_gamma=0.9999,
         visualization_RGBD_AP=dataset_validate[0],
         seed=SEED,
+        resume_dir=args.resume_dir,
     )
     return trainer, history
 

@@ -8,6 +8,7 @@ import subprocess
 import sys
 import zlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -84,6 +85,32 @@ def test_generate_poh_matches_jax_through_carried_weights(tmp_path):
     got = np.load(tmp_path / "poh.npy")
     d = np.abs(np.exp(1j * got.astype(np.float64)) - np.exp(1j * want.astype(np.float64)))
     assert np.quantile(d, 0.99) <= 1e-2 and np.max(d) <= 5e-2
+
+
+def test_generate_poh_reads_the_jax_packages_msgpack(tmp_path, capsys):
+    """--model_path G.msgpack written by the JAX package's save_generator:
+    the CLI loads it and gives the JAX generator's POH for the sample."""
+    from learned_hologram_gan_tpu.train import checkpoint as jckpt
+    from learned_hologram_gan_tpu.train.state import TrainState as JaxTrainState
+
+    paths = _write_bins(tmp_path)
+    jcfg = JaxGenConfig(rows=H, cols=W, pad_size=16, filter_radius_coefficient=0.45,
+                        unet_base_features=2)
+    jplan = jax_gen_plan(jcfg)
+    jgen = JaxGenerator(jcfg)
+    x = jnp.asarray(ImgDepthDataset(paths["img"], paths["depth"], samples_num=3, height=H, width=W)[2])[None]
+    variables = jax_variables(jgen, jplan, x, seed=2, train=False)
+    want = np.asarray(jax_apply(jgen, variables, jplan, x, train=False))[0]
+    jstate = JaxTrainState(step=0, key=None, params_G=variables["params"],
+                           batch_stats_G=variables["batch_stats"], params_D=None, batch_stats_D=None,
+                           opt_state_G=None, opt_state_D=None, vgg_params=None)
+    jckpt.save_generator(jstate, str(tmp_path / "G.msgpack"))
+
+    generate_poh.main(_argv(tmp_path, paths, str(tmp_path / "G.msgpack")))
+    assert f"Generator loaded from {tmp_path / 'G.msgpack'}" in capsys.readouterr().out
+    got = np.load(tmp_path / "poh.npy")
+    d = np.abs(np.exp(1j * got.astype(np.float64)) - np.exp(1j * want.astype(np.float64)))
+    assert np.mean(d) <= 2e-3 and np.quantile(d, 0.99) <= 1e-2 and np.max(d) <= 5e-2
 
 
 def test_generate_poh_runs_convs_in_full_f32(tmp_path):
@@ -175,12 +202,29 @@ def test_train_step_card_check_options_on_cpu(option):
             card_check.check_train_step(dict(stats, **dict(ran, k1_modes={"field+per_plane": 1})))
 
 
+def test_stage2_card_check_on_cpu():
+    """The stage-2 card-vs-CPU check, run with the CPU in both places:
+    identical loss and gradients, no kernel launch (the CPU takes the plain
+    versions), and the check names the launches it misses."""
+    stats = card_check.stage2_step_card_vs_cpu("cpu")
+    assert stats["loss"][0] == stats["loss"][1] and stats["grad_rel"] == 0
+    with pytest.raises(AssertionError, match="K3 launched 0 times, want 12"):
+        card_check.check_stage2_step(stats)
+    ran = dict(k1_modes={"conj_h": 1}, k3_launches=12)
+    card_check.check_stage2_step(dict(stats, **ran))
+    with pytest.raises(AssertionError, match="K2 launched 1 times"):
+        card_check.check_stage2_step(dict(stats, **ran, k2_launches=1))
+    with pytest.raises(AssertionError, match="grad_rel"):
+        card_check.check_stage2_step(dict(stats, **dict(ran, grad_rel=0.5)))
+
+
 def test_generate_poh_refuses_what_is_not_ported(tmp_path):
-    """flax checkpoints and --mesh_devices raise; --dtype bfloat16, refused
-    before it was ported, now runs."""
+    """--mesh_devices raises; flax checkpoints and --dtype bfloat16, refused
+    before they were ported, now load and run (a .msgpack without flax
+    variables, an empty map, is named as such)."""
     paths = _write_bins(tmp_path)
     (tmp_path / "G.msgpack").write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="holds no flax variables"):
         generate_poh.main(_argv(tmp_path, paths, str(tmp_path / "G.msgpack")))
     with pytest.raises(NotImplementedError):
         generate_poh.main(_argv(tmp_path, paths, "none.pt", ["--mesh_devices", "2"]))
@@ -407,9 +451,7 @@ def test_training_model_flag_parity():
 
 UNPORTED_TRAINING_FLAGS = [
     ["--mesh_devices", "2"], ["--spatial_mesh_devices", "2"],
-    ["--remat"], ["--no_cache_h"], ["--polyphase_level0"],
-    ["--resume_dir", "r"], ["--freeze_part1"], ["--pretrained_part1", "p"],
-    ["--pretrained_part2", "p"], ["--device_resident_data"],
+    ["--remat"], ["--no_cache_h"], ["--polyphase_level0"], ["--device_resident_data"],
 ]
 
 
@@ -417,6 +459,69 @@ UNPORTED_TRAINING_FLAGS = [
 def test_training_model_refuses_what_is_not_ported(tmp_path, extra):
     with pytest.raises(NotImplementedError, match=extra[0]):
         training_model.main(_train_argv(tmp_path, extra))
+
+
+def _stage_files(tmp_path, hw=16, base=2):
+    """Stage weights as the JAX package's pretraining writes them (seeded
+    flax variables of RGBD2AP and AP2POH): part 1's with its statistics,
+    part 2's with ``batch_stats: {}``."""
+    from learned_hologram_gan_tpu.config import OpticsConfig as JaxOpticsConfig
+    from learned_hologram_gan_tpu.models import AP2POH as JaxAP2POH
+    from learned_hologram_gan_tpu.models import RGBD2AP as JaxRGBD2AP
+    from learned_hologram_gan_tpu.ops import asm as jasm
+    from learned_hologram_gan_tpu.train import checkpoint as jckpt
+
+    x = jnp.zeros((1, 4, hw, hw))
+    v1 = jax_variables(JaxRGBD2AP(base_features=base), x, seed=5)
+    plan = jasm.make_plan(JaxOpticsConfig(rows=hw, cols=hw, pad_size=320), distances=[1e-3])
+    v2 = jax_variables(JaxAP2POH(kernel_size=3), plan, x[:, :3], x[:, :3], seed=6)
+    paths = str(tmp_path / "rgbd2ap.msgpack"), str(tmp_path / "ap2poh.msgpack")
+    jckpt._write(paths[0], v1)
+    jckpt._write(paths[1], {"params": v2["params"], "batch_stats": {}})
+    return paths, v1, v2
+
+
+def test_training_model_cpu_fine_tunes_from_stage_files_and_resumes(tmp_path, capsys):
+    """The fine-tune stage through the CLI: --pretrained_part1/2 (the JAX
+    package's stage files), --freeze_part1, .msgpack saves, --resume_dir.
+    Run for 1 epoch, then again to 2 epochs from the same resume_dir: the
+    second run resumes and ends bit for bit where an uninterrupted 2-epoch
+    run ends; part 1 keeps the stage file's parameters; the saved
+    generator loads in the JAX package."""
+    from learned_hologram_gan_tpu.train import checkpoint as jckpt
+    from learned_hologram_gan_tpu.train.state import TrainState as JaxTrainState
+
+    (part1, part2), v1, v2 = _stage_files(tmp_path)
+    out = tmp_path / "out"
+    tune = ["--use_gan", "--perceptual", "none", "--pretrained_part1", part1, "--pretrained_part2", part2,
+            "--freeze_part1", "--save_path_G", str(out / "G.msgpack"), "--save_path_D", str(out / "D.msgpack")]
+    full, _ = training_model.main(_train_argv(tmp_path, tune) + ["--epoch_num", "2"])
+    logs = capsys.readouterr().out
+    assert "Generator part1 loaded from" in logs and "Generator part2 loaded from" in logs
+    resume = ["--resume_dir", str(tmp_path / "resume")]
+    training_model.main(_train_argv(tmp_path, tune + resume))
+    again, _ = training_model.main(_train_argv(tmp_path, tune + resume) + ["--epoch_num", "2"])
+    assert "Resumed training from" in capsys.readouterr().out
+    assert again.state.step == full.state.step == 2
+    for a, b in ((again.state.generator, full.state.generator),
+                 (again.state.discriminator, full.state.discriminator)):
+        want = b.state_dict()
+        for k, v in a.state_dict().items():
+            assert torch.equal(v, want[k]), k
+    for a, b in zip(again.state.opt_G.state_dict()["state"].values(), full.state.opt_G.state_dict()["state"].values()):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    carried = convert.generator_state_dict(v1)
+    for k, p in again.state.generator.part1.named_parameters():
+        assert torch.equal(p.detach(), carried[k]), k
+    assert sorted(os.listdir(tmp_path / "resume")) == ["history.json", "meta.json", "step_1", "step_2"]
+
+    jtemplate = JaxTrainState(step=0, key=None, params_G={"part1": v1["params"], "part2": v2["params"]},
+                              batch_stats_G={"part1": v1["batch_stats"]}, params_D=None,
+                              batch_stats_D=None, opt_state_G=None, opt_state_D=None, vgg_params=None)
+    loaded = jckpt.load_generator(jtemplate, str(out / "G.msgpack"))
+    want = convert.flax_variables(again.state.generator)
+    for a, b in zip(jax.tree_util.tree_leaves(loaded.params_G), jax.tree_util.tree_leaves(want["params"])):
+        assert np.array_equal(np.asarray(a), b)
 
 
 def test_batches_match_jax_loader(tmp_path):

@@ -243,6 +243,13 @@ def test_train_step_on_card_matches_cpu(device):
     card_check.check_train_step(card_check.train_step_card_vs_cpu(device))
 
 
+def test_stage2_step_on_card_matches_cpu(device):
+    """One stage-2 pretraining loss and its gradients on the card (K1
+    conj_h once; K3 forward, and its adjoint in the backward, twelve
+    launches) against the CPU."""
+    card_check.check_stage2_step(card_check.stage2_step_card_vs_cpu(device))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("option", [dict(two_h_hat=True), dict(critic_batching="separate"),
                                     dict(critic_batching="full")],
