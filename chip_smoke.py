@@ -59,7 +59,17 @@ configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
      for 1 epoch and again to 2, which resumes, beside an uninterrupted
      2-epoch run: launches held to what the code makes, part 1 and the
      restored state bit for bit, each stage's steps/s and peak memory;
-  11. the three paths at a small size on the card (kernels) against the CPU
+  11. the high-resolution path (``learned_hologram_gan_tpu_torch/highres_smoke.py``):
+     the 384 x 384 remat GAN step against the plain step; ``eval_quality``
+     at its defaults (K1 and K3) and with ``--sequential`` (K3 per
+     distance), the summaries held to each other; ``highres_train_bench``
+     at 1088 x 1920 with remat and H on the fly, then without each lever,
+     ms/step and peak memory; ``finetune_highres`` (device-resident
+     bfloat16 data, 1 epoch) and its 1080p evaluation; the 4K zero-shot
+     evaluation (2176 x 3840, pads 352 / 580, ``--sequential
+     --no_cache_h``); each run's K1/K2/K3 launches held to what the code
+     makes (none at the 1080p and 4K grids, which are not powers of two);
+  12. the three paths at a small size on the card (kernels) against the CPU
      (plain versions), same weights and draws (``card_check``), the train
      step with each of the four options, in float32 and in bfloat16, and a
      stage-2 pretraining step.
@@ -389,8 +399,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr, flush=True)
         return 1
-    from learned_hologram_gan_tpu_torch import (bf16_smoke, fft_ablation, fused_smoke, pretrain_smoke,
-                                                train_smoke)
+    from learned_hologram_gan_tpu_torch import (bf16_smoke, fft_ablation, fused_smoke, highres_smoke,
+                                                pretrain_smoke, train_smoke)
     from learned_hologram_gan_tpu_torch.ops.cuda import build, conv_block, fft, spectral, transfer
 
     t0 = time.perf_counter()
@@ -493,6 +503,16 @@ def main():
         k4_launches += transfer.apply_transfer_stack.launches
     k1["stage2_launches"] = pretrain["stage2"]["launches"]["k1"]["conj_h"]
     train_kernels["k3"]["stage2_launches"] = pretrain["stage2"]["launches"]["k3"]
+    with Phase("high-resolution path: the 384^2 remat step and evaluation, 1080p training and "
+               "fine-tune, 4K zero-shot evaluation"):
+        transfer.reset_launch_counts()
+        highres = highres_smoke.run(card)
+        k4_launches += transfer.apply_transfer_stack.launches
+    eval384 = highres["eval_384"]
+    k1["eval384_launches"] = eval384["fused"]["launches"]["k1"]["conj_h"]
+    train_kernels["k1_train"]["eval384_launches"] = eval384["fused"]["launches"]["k1"]["from_spectrum"]
+    train_kernels["k3"]["eval384_launches"] = {k: eval384[k]["launches"]["k3"] for k in ("fused", "sequential")}
+    train_kernels["k1_train"]["remat_step_launches"] = highres["remat_step"]["launches_remat"]["k1"]
     if k4_launches:
         raise AssertionError(f"K4 launched {k4_launches} times on the main paths, want 0")
 

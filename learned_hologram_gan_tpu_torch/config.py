@@ -1,10 +1,10 @@
 """Optics and generator configuration (counterpart of
 ``learned_hologram_gan_tpu/config.py``).
 
-Carried: the padded-grid geometry, the physics constants, the generator
-widths and compute dtype, and the critic, loss and training dataclasses.
-The JAX package's TPU-only switches (``remat``, ``polyphase_level0``) and
-``pad_cols_override`` have no counterpart here yet.
+Carried: the padded-grid geometry (with ``pad_cols_override``), the
+physics constants, the generator widths, compute dtype and ``remat``, and
+the critic, loss and training dataclasses.  ``polyphase_level0`` has no
+counterpart here yet.
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ class OpticsConfig:
     """Geometry and physics of the hologram / SLM plane.
 
     ``pad_size`` is the row padding; the column padding follows the aspect
-    ratio like the reference: ``pad_cols = int(pad_size * cols / rows)``.
+    ratio like the reference: ``pad_cols = int(pad_size * cols / rows)``,
+    unless ``pad_cols_override`` sets it (at 4K the aspect-derived width is
+    FFT-hostile; ``utils/fftlen.good_fft_pads`` picks a 5-smooth one).
     """
 
     rows: int = 192
@@ -34,6 +36,7 @@ class OpticsConfig:
     filter_radius_coefficient: float = 0.5
     pixel_pitch: float = DEFAULT_PIXEL_PITCH
     wavelengths: Tuple[float, ...] = DEFAULT_WAVELENGTHS
+    pad_cols_override: Optional[int] = None
 
     @property
     def pad_rows(self) -> int:
@@ -41,6 +44,8 @@ class OpticsConfig:
 
     @property
     def pad_cols(self) -> int:
+        if self.pad_cols_override is not None:
+            return self.pad_cols_override
         return int(self.pad_size * (self.cols / self.rows))
 
     @property
@@ -68,6 +73,8 @@ class GeneratorConfig:
     unet_base_features: int = 64  # reference UNet encoder1 width
     use_modulation: bool = True  # False = ablation fakeChannelWiseSymmetricConv
     dtype: str = "float32"  # conv compute dtype, "float32" or "bfloat16"; parameters stay float32
+    remat: bool = False  # recompute each UNet block's activations in the backward (1080p/4K)
+    pad_cols_override: Optional[int] = None  # see OpticsConfig
 
     def optics(self) -> OpticsConfig:
         return OpticsConfig(
@@ -77,6 +84,7 @@ class GeneratorConfig:
             filter_radius_coefficient=self.filter_radius_coefficient,
             pixel_pitch=self.pixel_pitch,
             wavelengths=self.wavelengths,
+            pad_cols_override=self.pad_cols_override,
         )
 
 

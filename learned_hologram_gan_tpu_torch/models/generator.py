@@ -48,11 +48,11 @@ class RGBD2AP(nn.Module):
     """Stage 1: RGBD (B, 4, H, W) -> (amp, phs), each (B, 3, H, W)."""
 
     def __init__(self, amplitude_scaler: float = 1.1, base_features: int = 64,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.amplitude_scaler = amplitude_scaler
         self.unet = UNet(in_channels=4, output_channels=6, base_features=base_features,
-                         dtype=dtype)
+                         dtype=dtype, remat=remat)
 
     @full_f32_convs()
     def forward(self, rgbd: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -102,7 +102,7 @@ class Generator(nn.Module):
         super().__init__()
         self.config = config
         dtype = compute_dtype(config.dtype)
-        self.part1 = RGBD2AP(config.amplitude_scaler, config.unet_base_features, dtype)
+        self.part1 = RGBD2AP(config.amplitude_scaler, config.unet_base_features, dtype, config.remat)
         self.part2 = AP2POH(config.kernel_size, config.use_modulation, dtype)
 
     def forward(self, plan: asm.PropagatorPlan, rgbd: torch.Tensor) -> torch.Tensor:
@@ -153,8 +153,10 @@ def make_generator(
 
 
 def make_generator_plan(
-    config: GeneratorConfig, device: str | torch.device = "cuda"
+    config: GeneratorConfig, device: str | torch.device = "cuda", cache_h: bool = True
 ) -> asm.PropagatorPlan:
     """The fixed-distance plan a Generator propagates through (reference
-    AP2POH.py:51-62: same optics, single distance, default 1 mm)."""
-    return asm.make_plan(config.optics(), distances=[config.distance], device=device)
+    AP2POH.py:51-62: same optics, single distance, default 1 mm);
+    ``cache_h=False`` keeps no transfer function (:func:`asm.make_plan`)."""
+    return asm.make_plan(config.optics(), distances=[config.distance], device=device,
+                         cache_h=cache_h)

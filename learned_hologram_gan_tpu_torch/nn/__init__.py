@@ -11,6 +11,7 @@ from .blocks import (
     frozen_batch_stats,
     full_f32_convs,
     init_weights,
+    remat,
 )
 from .fused_unet import unet_apply_fused
 from .polyphase import (
@@ -35,6 +36,7 @@ __all__ = [
     "frozen_batch_stats",
     "full_f32_convs",
     "init_weights",
+    "remat",
     "depth_to_space",
     "poly_concat",
     "poly_conv1x1",

@@ -18,17 +18,23 @@ bfloat16 and the bias adds in bfloat16, as flax adds it; :class:`BatchNorm`
 reduces its statistics in float32, normalizes in float32 and rounds once
 (flax ``_compute_stats`` / ``_normalize``).  Float32 modules take torch's
 fused conv bias and ``F.batch_norm``.
+
+:func:`remat` is flax's ``nn.remat`` / ``jax.checkpoint``: a region's
+activations are recomputed in the backward instead of kept.  The recompute
+leaves BatchNorm running statistics as the forward left them, so a remat
+step updates them once, as the plain step does.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 # BatchNorm as flax.linen.BatchNorm: epsilon 1e-5, momentum 0.99 on the
@@ -125,7 +131,8 @@ class BatchNorm(nn.BatchNorm2d):
     A bfloat16 input takes flax's rule for a bfloat16 BatchNorm: statistics
     reduce in float32, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
     runs in float32, and the result rounds once to bfloat16; the running
-    statistics stay float32.  A float32 input takes ``F.batch_norm``.
+    statistics stay float32.  A float32 input takes ``F.batch_norm``, but
+    for a single value per channel in train mode, which it refuses.
     """
 
     def __init__(self, features: int):
@@ -146,7 +153,9 @@ class BatchNorm(nn.BatchNorm2d):
         return mean, var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype != torch.float32:
+        # F.batch_norm refuses one value per channel in train mode (a batch-1
+        # 1 x 1 bottleneck); flax normalizes it to the bias, as this path does
+        if x.dtype != torch.float32 or (self.training and x.numel() == x.shape[1]):
             if self.training:
                 mean, var = self._batch_stats(x)
             else:
@@ -162,20 +171,42 @@ class BatchNorm(nn.BatchNorm2d):
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
-@contextlib.contextmanager
-def frozen_batch_stats(module: nn.Module):
+class frozen_batch_stats:
     """Train-mode forwards of ``module`` inside the block normalize with
     batch statistics but leave every :class:`BatchNorm`'s running
-    statistics unchanged."""
-    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
-    prev = [m.update_stats for m in norms]
-    for m in norms:
-        m.update_stats = False
-    try:
-        yield
-    finally:
-        for m, p in zip(norms, prev):
+    statistics unchanged.  Reusable: a :func:`remat` region enters it at
+    each recompute, and a ``create_graph`` double backward recomputes a
+    region more than once."""
+
+    def __init__(self, module: nn.Module):
+        self.norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+        self.saved = []
+
+    def __enter__(self):
+        self.saved.append([m.update_stats for m in self.norms])
+        for m in self.norms:
+            m.update_stats = False
+        return self
+
+    def __exit__(self, *exc):
+        for m, p in zip(self.norms, self.saved.pop()):
             m.update_stats = p
+        return False
+
+
+def remat(fn: Callable, *args, module: Optional[nn.Module] = None):
+    """``fn(*args)`` with its activations recomputed in the backward instead
+    of kept (``torch.utils.checkpoint``, non-reentrant: it carries a
+    ``create_graph`` double backward, and nests).  The recompute runs under
+    :class:`frozen_batch_stats` for ``module``, the module of ``fn`` whose
+    BatchNorms run in train mode, and under the backward's own settings
+    (the train step's run in full float32).  ``fn`` draws no random
+    numbers: the callers hoist their draws, so no RNG state is stashed."""
+    recompute = frozen_batch_stats(module) if module is not None else contextlib.nullcontext()
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), recompute),
+    )
 
 
 def _batch_norm(features: int) -> BatchNorm:
@@ -276,7 +307,10 @@ class UNet(nn.Module):
     (reference UNet :241-315): ``levels`` encoder levels at base*2^i
     channels, a base*2^levels bottleneck, transposed-conv ups, skip
     connections by channel concat [skip, up], a final 1x1 conv.  Its
-    convolutions run in compute ``dtype``, and so does its output."""
+    convolutions run in compute ``dtype``, and so does its output.  With
+    ``remat`` each residual block recomputes its activations in the
+    backward (:func:`remat`; the JAX package's per-block ``nn.remat``); the
+    parameters are the same."""
 
     def __init__(
         self,
@@ -285,11 +319,13 @@ class UNet(nn.Module):
         base_features: int = 64,
         levels: int = 4,
         dtype: torch.dtype = torch.float32,
+        remat: bool = False,
     ):
         super().__init__()
         f = base_features
         self.levels = levels
         self.dtype = dtype
+        self.remat = remat
         self.enc_0 = ResidualBlock(in_channels, f, True, dtype)
         for i in range(1, levels):
             setattr(self, f"enc_{i}", ResidualBlock(f * 2 ** (i - 1), f * 2**i, True, dtype))
@@ -310,22 +346,26 @@ class UNet(nn.Module):
         self.dec_0 = ResidualBlock(2 * f, f, True, dtype)
         self.Conv_0 = _conv(f, output_channels, 1, dtype)
 
+    def _block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        block = getattr(self, name)
+        return remat(block, x, module=block) if self.remat else block(x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skips = []
         y = x
         for i in range(self.levels):
-            y = getattr(self, f"enc_{i}")(y)
+            y = self._block(f"enc_{i}", y)
             skips.append(y)
             y = F.max_pool2d(y, 2)
-        y = self.bottleneck(y)
+        y = self._block("bottleneck", y)
         if self.levels > 1:
             y = self.ConvTranspose_0(y)
         for i in reversed(range(1, self.levels)):
-            y = getattr(self, f"dec_{i}")(torch.cat([skips[i], y], dim=1))
+            y = self._block(f"dec_{i}", torch.cat([skips[i], y], dim=1))
             if i > 1:
                 y = getattr(self, f"ConvTranspose_{self.levels - i}")(y)
         y = getattr(self, f"ConvTranspose_{self.levels - 1}")(y)
-        y = self.dec_0(torch.cat([skips[0], y], dim=1))
+        y = self._block("dec_0", torch.cat([skips[0], y], dim=1))
         return torch.sigmoid(self.Conv_0(y))
 
 

@@ -15,6 +15,12 @@ Two branches, as in the JAX package:
     for grids K1 does not support, and the spectrum primitives.  ``_fft2``
     and ``_ifft2`` are ``ops/cuda/fft`` (kernel K3 on a CUDA tensor,
     ``torch.fft`` on a CPU tensor or a grid K3 rejects).
+A plan built with ``cache_h=False`` keeps no transfer-function stack: each
+primitive computes the H it needs from the float32 w-grid, bit for bit the
+cached values (the memory lever at 1080p and 4K).  ``sequential=True`` in
+:func:`propagate_batch_multi` and :func:`freq2ap_all_distances` loops over
+the distances with one padded plane set in flight, on the composable branch
+(K3 per distance on a CUDA tensor), as the JAX package's ``lax.map`` does.
 Complex tensors are complex64; the public layout is NCHW.
 """
 
@@ -41,7 +47,7 @@ class PropagatorPlan:
       radial_grid: (Rp, Cp) float32 fftfreq radius grid of the sigmoid
                  (differentiable) low-pass (reference :315-319, :426-436).
       H:         (D, C, Rp, Cp) complex64 cached transfer functions, or None
-                 without a distance stack.
+                 without a distance stack or with ``cache_h=False``.
       distances: (D,) float32 fixed distance stack, or None.
     """
 
@@ -76,12 +82,15 @@ def make_plan(
     optics: OpticsConfig,
     distances: Optional[Sequence[float]] = None,
     device: str | torch.device = "cuda",
+    cache_h: bool = True,
 ) -> PropagatorPlan:
     """Build a :class:`PropagatorPlan` on ``device``.
 
     ``distances`` fixes the distance stack (one element for the fixed-distance
-    propagator); its complex H stack is cached for the composable branch
-    (the fused branch computes H itself).
+    propagator); with ``cache_h`` its complex H stack is cached for the
+    composable branch (the fused branch computes H itself).  ``cache_h=False``
+    keeps only the float32 w-grid, saving D*C*Rp*Cp*8 bytes: H is computed
+    where it is used.
     """
     rp, cp = optics.padded_rows, optics.padded_cols
     w_grid = torch.from_numpy(
@@ -97,7 +106,8 @@ def make_plan(
         dist = torch.from_numpy(
             np.atleast_1d(np.asarray(distances, dtype=np.float32))
         ).to(device)
-        h = _transfer_function(w_grid, dist)
+        if cache_h:
+            h = _transfer_function(w_grid, dist)
 
     return PropagatorPlan(
         w_grid=w_grid,
@@ -155,18 +165,37 @@ def _transfer_function(w_grid: torch.Tensor, distances: torch.Tensor) -> torch.T
     return torch.complex(torch.cos(theta), torch.sin(theta))
 
 
-def _h_stack(plan: PropagatorPlan) -> torch.Tensor:
-    if plan.H is None:
+def transfer_function(plan: PropagatorPlan, distances: torch.Tensor) -> torch.Tensor:
+    """The (D, C, Rp, Cp) transfer-function stack for any ``distances`` (D,),
+    computed from the plan's w-grid."""
+    distances = torch.atleast_1d(torch.as_tensor(distances, dtype=torch.float32,
+                                                 device=plan.w_grid.device))
+    return _transfer_function(plan.w_grid, distances)
+
+
+def _need_distances(plan: PropagatorPlan) -> None:
+    if plan.distances is None:
         raise ValueError(
             "This primitive needs a plan built with a fixed distance stack; "
             "pass distances=[...] to make_plan()."
         )
-    return plan.H
+
+
+def _h_stack(plan: PropagatorPlan) -> torch.Tensor:
+    """The plan's (D, C, Rp, Cp) transfer stack: cached, or computed from
+    the w-grid when the plan was built with ``cache_h=False``."""
+    if plan.H is not None:
+        return plan.H
+    _need_distances(plan)
+    return _transfer_function(plan.w_grid, plan.distances)
 
 
 def _fixed_h(plan: PropagatorPlan) -> torch.Tensor:
     """The (C, Rp, Cp) transfer function of the plan's first distance."""
-    return _h_stack(plan)[0]
+    if plan.H is not None:
+        return plan.H[0]
+    _need_distances(plan)
+    return _transfer_function(plan.w_grid, plan.distances[:1])[0]
 
 
 def pad(plan: PropagatorPlan, x: torch.Tensor) -> torch.Tensor:
@@ -371,14 +400,31 @@ def differentiable_lowpass_filter(
 
 
 
+def _sequential_planes(plan: PropagatorPlan, g0: torch.Tensor, distances: torch.Tensor, outs):
+    """For each distance z in turn, ``crop(ifft2(g0 * H(z) * mask))``, one
+    padded plane set in flight: each ``fn`` of ``outs``, a list of
+    (fn, out) pairs with ``out`` a (B, D, C, rows, cols) tensor, writes
+    ``fn(plane)`` into ``out[:, d]``."""
+    for d in range(int(distances.shape[0])):
+        h = _transfer_function(plan.w_grid, distances[d : d + 1])[0]
+        plane = crop(plan, _ifft2(g0 * (h * plan.mask)))
+        for fn, out in outs:
+            out[:, d] = fn(plane)
+
+
 def propagate_batch_multi(
     plan: PropagatorPlan,
     amp: torch.Tensor,
     phs: torch.Tensor,
     distances: Optional[torch.Tensor] = None,
+    sequential: bool = False,
 ) -> torch.Tensor:
     """Batch x multi-distance propagation -> (B*D, C, rows, cols) amplitudes,
-    row ``b*D + d`` being sample b at distance d (reference :503-522)."""
+    row ``b*D + d`` being sample b at distance d (reference :503-522).
+
+    ``sequential=True`` propagates one distance at a time instead of
+    building the (B, D, C, Rp, Cp) spectrum stack: peak memory is one padded
+    plane set whatever D (the single-card 1080p/4K mode)."""
     use_plan_stack = distances is None
     if use_plan_stack:
         if plan.distances is None:
@@ -386,10 +432,15 @@ def propagate_batch_multi(
         distances = plan.distances
     distances = torch.atleast_1d(distances.float())
     g = field(amp, phs)
-    if _fused_ok(plan):
+    if _fused_ok(plan) and not sequential:
         out = _fused_apply(plan, g, distances).abs()
         return out.reshape(out.shape[0] * out.shape[1], *out.shape[2:])
     g0 = _fft2(pad(plan, g))  # (B, C, Rp, Cp)
+    if sequential:
+        b, d = g0.shape[0], int(distances.shape[0])
+        out = g0.real.new_empty(b, d, g0.shape[1], plan.rows, plan.cols)
+        _sequential_planes(plan, g0, distances, [(torch.abs, out)])
+        return out.reshape(b * d, *out.shape[2:])
     h = _h_stack(plan) if use_plan_stack else _transfer_function(plan.w_grid, distances)
     gz = g0[:, None] * (h * plan.mask)[None]  # (B, D, C, Rp, Cp)
     gz = gz.reshape(gz.shape[0] * gz.shape[1], *gz.shape[2:])
@@ -407,11 +458,20 @@ def filter_ap2filtered_freq(
 
 
 def freq2ap_all_distances(
-    plan: PropagatorPlan, g0: torch.Tensor
+    plan: PropagatorPlan, g0: torch.Tensor, sequential: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Spectrum (B, C, Rp, Cp) -> (amp, phase) at every cached distance,
     each (B*D, C, rows, cols), row ``b*D + d`` being sample b at distance d
-    (reference :524-531)."""
+    (reference :524-531).  ``sequential=True`` propagates one distance at a
+    time, one padded plane set in flight (the single-card 1080p/4K
+    evaluation mode, as :func:`propagate_batch_multi`)."""
+    if sequential:
+        _need_distances(plan)
+        b, d = g0.shape[0], plan.num_distances
+        amp = g0.real.new_empty(b, d, g0.shape[1], plan.rows, plan.cols)
+        phs = torch.empty_like(amp)
+        _sequential_planes(plan, g0, plan.distances, [(torch.abs, amp), (_angle, phs)])
+        return amp.reshape(b * d, *amp.shape[2:]), phs.reshape(b * d, *phs.shape[2:])
     if _fused_ok(plan) and plan.distances is not None:
         out = _fused_apply(plan, g0, plan.distances, from_spectrum=True)
         gz = out.reshape(out.shape[0] * out.shape[1], *out.shape[2:])
@@ -455,7 +515,11 @@ def freq2ap_random_distances(
         z = plan.distances[idx]
         gz = _fused_apply(plan, g0, torch.cat([z, z]), from_spectrum=True, per_plane=True)[:, 0]
         return gz.abs(), _angle(gz)
-    h = (_h_stack(plan) * plan.mask)[idx]  # (B, C, Rp, Cp)
+    if plan.H is not None:
+        h = (plan.H * plan.mask)[idx]  # (B, C, Rp, Cp)
+    else:
+        # on the fly: only the B drawn distances are built
+        h = _transfer_function(plan.w_grid, plan.distances[idx]) * plan.mask
     gz = g0.reshape(2, b, *g0.shape[1:]) * h[None]
     gz = crop(plan, _ifft2(gz.reshape(2 * b, *g0.shape[1:])))
     return gz.abs(), _angle(gz)

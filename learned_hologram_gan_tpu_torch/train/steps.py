@@ -26,8 +26,16 @@ output, and step 6 backpropagates through the graph kept from step 1.
 Every convolution of a step, forward and backward, runs in full float32
 (``full_f32_convs``), whatever the caller's TF32 setting.  The random
 draws (distance indices, GP alphas) come from ``state.rng`` unless passed
-in, as the parity tests pass JAX's.  ``remat`` and spatial meshes are not
-ported.
+in, as the parity tests pass JAX's; they are drawn before the step, so no
+recomputed region draws.
+
+``remat`` recomputes activations in the backward instead of keeping them
+(``nn.blocks.remat``) at the JAX step's sites: steps 1-4 (the generator
+and the reconstruction), every critic apply, the penalty's critic inside
+its double backward, and VGG19.  Recomputes leave BatchNorm running
+statistics alone, so the step's values are the plain step's: on the CPU,
+bit for bit.  A recompute runs K1 and K3 (and, in the penalty's double
+backward, the critic) a second time.  Spatial meshes are not ported.
 """
 
 from __future__ import annotations
@@ -39,13 +47,20 @@ import torch
 from ..config import LossConfig
 from ..losses import PHASE_LOSSES, mse, perceptual_loss, psnr, ssim, total_variation_loss
 from ..models.generator import Generator
-from ..nn.blocks import frozen_batch_stats, full_f32_convs
+from ..nn.blocks import frozen_batch_stats, full_f32_convs, remat as remat_region
 from ..ops import asm
 from ..ops.asm import PropagatorPlan
 from .state import TrainState
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (RGBD, amp, phs)
 Recon = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _critic_apply(critic: torch.nn.Module, remat: bool) -> Callable:
+    """The critic's forward, under :func:`remat_region` when ``remat``."""
+    if remat:
+        return lambda x: remat_region(critic, x, module=critic)
+    return critic
 
 
 @full_f32_convs()
@@ -56,13 +71,23 @@ def reconstruct(
     batch: Batch,
     idx: torch.Tensor,
     two_h: bool = False,
+    remat: bool = False,
 ) -> Recon:
     """Steps 1-4: (hat_amps, target_amps, hat_phs, target_phs), each
     (B, C, rows, cols), hat[i] and target[i] at distance ``idx[i]``.  The
     hat side keeps its graph back to the generator; the target side has
     none.  ``two_h`` reconstructs through
     :func:`asm.hat_target_random_distances` (one transfer function per
-    branch, no spectrum built)."""
+    branch, no spectrum built).  ``remat`` keeps none of the region's
+    activations: the backward runs it again (generator in train mode, its
+    running statistics left as the forward left them)."""
+    if remat:
+        return remat_region(_reconstruct, generator, gen_plan, multi_plan, batch, idx, two_h,
+                            module=generator)
+    return _reconstruct(generator, gen_plan, multi_plan, batch, idx, two_h)
+
+
+def _reconstruct(generator, gen_plan, multi_plan, batch, idx, two_h) -> Recon:
     rgbd, target_amp, target_phs = batch
     poh = generator(gen_plan, rgbd)
     if two_h:
@@ -86,15 +111,17 @@ def gradient_penalty(
     real: torch.Tensor,
     fake: torch.Tensor,
     alpha: torch.Tensor,
+    remat: bool = False,
 ) -> torch.Tensor:
     """WGAN-GP penalty ((||grad_x D(x_interp)||_2 - 1)^2).mean() (reference
     compute_gradient_penalty, watermelon.py:458-477), differentiable in the
     critic's parameters.  The critic runs in train mode on batch statistics
     and leaves its running statistics unchanged, as the JAX package discards
-    that update."""
+    that update.  ``remat`` recomputes the critic's forward inside the
+    double backward instead of keeping its activations."""
     interp = (alpha * real + (1.0 - alpha) * fake).requires_grad_(True)
     with frozen_batch_stats(discriminator):
-        out = discriminator(interp)
+        out = _critic_apply(discriminator, remat)(interp)
     (grads,) = torch.autograd.grad(out.sum(), interp, create_graph=True)
     norms = torch.sqrt((grads.reshape(grads.shape[0], -1) ** 2).sum(dim=1) + 1e-12)
     return ((norms - 1.0) ** 2).mean()
@@ -110,10 +137,12 @@ def _critic_loss(
     alpha: torch.Tensor,
     discriminator_lambda: float,
     critic_batching: str,
+    remat: bool = False,
 ) -> torch.Tensor:
     """One critic iteration's WGAN-GP loss, -D(real) + D(fake) + lambda GP,
     with the applies batched as the JAX step batches them
-    (``train/steps.py:319-397``):
+    (``train/steps.py:319-397``), each under :func:`remat_region` when
+    ``remat``:
 
       * "separate": D(real), then D(fake), each updating the running
         statistics, then the penalty's apply on frozen statistics;
@@ -124,16 +153,17 @@ def _critic_loss(
         coupling of the joint batch.
     """
     b = real.shape[0]
+    apply = _critic_apply(critic, remat)
     if critic_batching == "separate":
-        real_v, fake_v = critic(real), critic(fake)
-        gp = gradient_penalty(critic, real, fake, alpha)
+        real_v, fake_v = apply(real), apply(fake)
+        gp = gradient_penalty(critic, real, fake, alpha, remat)
     elif critic_batching == "pair":
-        both_v = critic(torch.cat([real, fake], dim=0))
+        both_v = apply(torch.cat([real, fake], dim=0))
         real_v, fake_v = both_v[:b], both_v[b:]
-        gp = gradient_penalty(critic, real, fake, alpha)
+        gp = gradient_penalty(critic, real, fake, alpha, remat)
     else:
         interp = (alpha * real + (1.0 - alpha) * fake).requires_grad_(True)
-        out = critic(torch.cat([real, fake, interp], dim=0))
+        out = apply(torch.cat([real, fake, interp], dim=0))
         out = out.reshape(out.shape[0], -1)  # scores per sample, as JAX slices them
         (grads,) = torch.autograd.grad(out[2 * b:].sum(), interp, create_graph=True)
         norms = torch.sqrt((grads.reshape(b, -1) ** 2).sum(dim=1) + 1e-12)
@@ -150,6 +180,7 @@ def critic_updates(
     alphas: torch.Tensor,
     discriminator_lambda: float,
     critic_batching: str = "pair",
+    remat: bool = False,
 ) -> torch.Tensor:
     """Step 5: ``len(alphas)`` critic updates on detached reconstructions,
     each batched as ``critic_batching`` says (:func:`_critic_loss`);
@@ -159,7 +190,7 @@ def critic_updates(
     losses = []
     for alpha in alphas:
         loss = _critic_loss(critic, target_amps, hat_amps, alpha, discriminator_lambda,
-                            critic_batching)
+                            critic_batching, remat)
         state.opt_D.zero_grad(set_to_none=True)
         loss.backward(inputs=params)
         state.opt_D.step()
@@ -177,12 +208,16 @@ def _g_loss_terms(
     hat_phs: torch.Tensor,
     target_phs: torch.Tensor,
     loss_from_discriminator: torch.Tensor,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The 5-term weighted generator loss (reference G_loss,
-    watermelon.py:418-445)."""
+    watermelon.py:418-445); ``remat`` recomputes VGG19's activations (hat
+    and target sides) in the backward."""
     phs_loss = PHASE_LOSSES[loss_cfg.phase_loss](hat_phs, target_phs) * loss_cfg.phs_gradient_loss_weight
     if loss_cfg.perceptual == "none":
         p_loss = torch.zeros((), device=hat_amps.device)
+    elif remat:
+        p_loss = remat_region(perceptual_loss, vgg, hat_amps, target_amps) * loss_cfg.perceptual_loss_weight
     else:
         p_loss = perceptual_loss(vgg, hat_amps, target_amps) * loss_cfg.perceptual_loss_weight
     pixel_loss = mse(hat_amps, target_amps) * loss_cfg.pixel_loss_weight
@@ -202,16 +237,17 @@ def _g_loss_terms(
 
 @full_f32_convs()
 def generator_update(
-    state: TrainState, loss_cfg: LossConfig, recon: Recon
+    state: TrainState, loss_cfg: LossConfig, recon: Recon, remat: bool = False
 ) -> Dict[str, torch.Tensor]:
     """Step 6: the generator loss against the current critic (train mode,
     batch statistics, no running-stat update), its backward through the
-    reconstruction's graph, Adam on G.  Returns the loss terms, detached."""
+    reconstruction's graph (recomputing the remat regions), Adam on G.
+    Returns the loss terms, detached."""
     hat_amps, target_amps, hat_phs, target_phs = recon
     with frozen_batch_stats(state.discriminator):
-        loss_from_d = -state.discriminator(hat_amps).mean()
+        loss_from_d = -_critic_apply(state.discriminator, remat)(hat_amps).mean()
     loss, terms = _g_loss_terms(
-        loss_cfg, state.vgg, hat_amps, target_amps, hat_phs, target_phs, loss_from_d
+        loss_cfg, state.vgg, hat_amps, target_amps, hat_phs, target_phs, loss_from_d, remat
     )
     params = [p for p in state.generator.parameters() if p.requires_grad]
     state.opt_G.zero_grad(set_to_none=True)
@@ -237,13 +273,16 @@ def build_train_step(
     discriminator_lambda: float,
     critic_batching: str = "pair",
     two_h_hat: bool = False,
+    remat: bool = False,
 ) -> Callable:
     """Build ``train_step(state, batch, gen_plan, multi_plan, idx=None,
     alphas=None) -> (state, metrics)``, which updates ``state`` in place.
 
     ``critic_batching`` ("separate", "pair" or "full") structures each
     critic iteration (:func:`_critic_loss`); ``two_h_hat`` reconstructs
-    through :func:`asm.hat_target_random_distances`.  ``idx`` (B,) and
+    through :func:`asm.hat_target_random_distances`; ``remat`` recomputes
+    activations in the backward at the JAX step's sites (module
+    docstring).  ``idx`` (B,) and
     ``alphas`` (ratio, B, 1, 1, 1) override the draws from ``state.rng``.
     ``metrics`` holds 0-dim tensors on the batch's device.
     """
@@ -258,12 +297,14 @@ def build_train_step(
         alphas = drawn_alphas if alphas is None else alphas
         state.generator.train()
         state.discriminator.train()
-        recon = reconstruct(state.generator, gen_plan, multi_plan, batch, idx, two_h=two_h_hat)
+        recon = reconstruct(state.generator, gen_plan, multi_plan, batch, idx, two_h=two_h_hat,
+                            remat=remat)
         hat_d, target_d = recon[0].detach(), recon[1]
         d_loss = critic_updates(
-            state, target_d, hat_d, alphas.to(hat_d.device), discriminator_lambda, critic_batching
+            state, target_d, hat_d, alphas.to(hat_d.device), discriminator_lambda, critic_batching,
+            remat,
         )
-        metrics = generator_update(state, loss_cfg, recon)
+        metrics = generator_update(state, loss_cfg, recon, remat)
         with torch.no_grad():
             metrics["D_loss"] = d_loss
             metrics["PSNR"] = psnr(hat_d, target_d)

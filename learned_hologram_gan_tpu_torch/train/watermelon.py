@@ -2,10 +2,14 @@
 ``learned_hologram_gan_tpu/train/watermelon.py``): the epoch loop,
 checkpoints, the loss/metric history and the visualizations.
 
-Constructor and ``train`` keep the JAX package's arguments.  The ones this
-port does not support yet (remat, uncached H, spatial meshes, polyphase
-level 0, column-pad overrides) raise ``NotImplementedError`` naming the
-argument and its CLI flag.  The two-stage pretrain -> fine-tune workflow
+Constructor and ``train`` keep the JAX package's arguments.  The
+single-card high-resolution levers run as in the JAX package: ``remat``
+(per-block UNet recomputation and the step's remat sites), ``cache_h=False``
+(no transfer-function stack kept; H computed where it is used) and
+``pad_cols_override`` (a 5-smooth column padding from
+``utils/fftlen.good_fft_pads``).  The ones this port does not support yet
+(spatial meshes, polyphase level 0) raise ``NotImplementedError`` naming
+the argument and its CLI flag.  The two-stage pretrain -> fine-tune workflow
 runs as in the JAX package: per-part pretrained weights
 (``pretrained_part1/2_path``, flax ``.msgpack`` or torch files),
 ``freeze_part1``, and full-state checkpoints in ``resume_dir`` with
@@ -89,11 +93,8 @@ class Watermelon:
         device: str | torch.device = "cuda",
     ):
         refused = [
-            (remat, "remat", "remat"),
-            (not cache_h, "cache_h=False", "no_cache_h"),
             (spatial_mesh is not None, "spatial_mesh", "spatial_mesh_devices"),
             (polyphase_level0, "polyphase_level0", "polyphase_level0"),
-            (pad_cols_override is not None, "pad_cols_override", None),
         ]
         for bad, name, flag in refused:
             if bad:
@@ -121,6 +122,8 @@ class Watermelon:
             use_modulation=use_modulation,
             unet_base_features=unet_base_features,
             dtype=dtype,
+            remat=remat,
+            pad_cols_override=pad_cols_override,
         )
         self.disc_config = DiscriminatorConfig(feature_d=feature_d, dtype=dtype)
         self.use_gan = use_gan
@@ -132,9 +135,10 @@ class Watermelon:
 
         # plans: fixed 1 mm for the generator, the distance stack for the
         # reconstruction losses
-        self.gen_plan = make_generator_plan(self.gen_config, device=self.device)
+        self.gen_plan = make_generator_plan(self.gen_config, device=self.device, cache_h=cache_h)
         self.multi_plan = asm.make_plan(
-            self.gen_config.optics(), distances=self.distance_stack, device=self.device
+            self.gen_config.optics(), distances=self.distance_stack, device=self.device,
+            cache_h=cache_h,
         )
         self.generator, self.discriminator = build_modules(self.gen_config, self.disc_config, use_gan)
         self.vgg = None
@@ -248,6 +252,7 @@ class Watermelon:
         self.train_step = train_step = build_train_step(
             self.loss_cfg, self.use_gan, discriminator_train_ratio, discriminator_lambda,
             critic_batching=self.critic_batching, two_h_hat=self.two_h_hat,
+            remat=self.gen_config.remat,
         )
         self.eval_step = build_eval_step(self.loss_cfg)
 

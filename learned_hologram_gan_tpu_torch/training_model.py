@@ -25,15 +25,19 @@ fine-tune stage of the two-stage workflow takes the stage files that
         --freeze_part1 --resume_dir out/resume
 
 ``--resume_dir`` keeps full-state checkpoints there and resumes from the
-latest on a restart.  Flags of the JAX package that the port does not
-support yet (``--mesh_devices``, ``--spatial_mesh_devices``, ``--remat``,
-``--no_cache_h``, ``--polyphase_level0``, ``--device_resident_data``)
-raise ``NotImplementedError`` naming the flag.
+latest on a restart.  The high-resolution levers run as in the JAX
+package: ``--remat`` (recompute activations in the backward),
+``--no_cache_h`` (no transfer-function stack kept) and
+``--device_resident_data`` (both splits uploaded once, float32; batches
+gathered on the device).  Flags of the JAX package that the port does not
+support yet (``--mesh_devices``, ``--spatial_mesh_devices``,
+``--polyphase_level0``) raise ``NotImplementedError`` naming the flag.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 from typing import Optional, Sequence
 
@@ -117,11 +121,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--polyphase_level0', action='store_true',
                         help="UNet level 0 in the space-to-depth phase domain (not ported yet).")
     parser.add_argument('--device_resident_data', action='store_true',
-                        help="Keep the whole dataset in device memory (not ported yet).")
+                        help="Upload both splits to device memory once; batches are gathered there.")
     parser.add_argument('--remat', action='store_true',
-                        help="Activation checkpointing through the UNet (not ported yet).")
+                        help="Recompute activations in the backward (UNet blocks, reconstruction, "
+                             "critic, VGG19) instead of keeping them.")
     parser.add_argument('--no_cache_h', action='store_true',
-                        help="Compute the ASM transfer function on the fly (not ported yet).")
+                        help="Compute the ASM transfer functions where they are used instead of "
+                             "keeping their stack.")
     parser.add_argument('--device', type=str, default='cuda',
                         help="torch device to run on (cuda unless asked otherwise)")
     return parser
@@ -132,7 +138,6 @@ def _refuse_unported(args) -> None:
     refuses the others it does not support."""
     unported = [
         (args.mesh_devices, "--mesh_devices"),
-        (args.device_resident_data, "--device_resident_data"),
     ]
     for bad, flag in unported:
         if bad:
@@ -144,7 +149,7 @@ def main(argv: Optional[Sequence[str]] = None):
     and plans stay usable) and the history."""
     import torch
 
-    from .data import ImgDepthAmpPhsDataset, epoch_loader
+    from .data import ImgDepthAmpPhsDataset, dataset_to_device, device_epoch_loader, epoch_loader
     from .train import Watermelon
 
     args = build_parser().parse_args(argv)
@@ -174,16 +179,22 @@ def main(argv: Optional[Sequence[str]] = None):
         width=args.width,
     )
 
+    if args.device_resident_data:
+        # both splits uploaded once; a batch is a gather on the device
+        train_data = dataset_to_device(dataset_train, device=device)
+        val_data = dataset_to_device(dataset_validate, device=device)
+        loader = device_epoch_loader
+    else:
+        train_data, val_data = dataset_train, dataset_validate
+        loader = functools.partial(epoch_loader, device=device)
     epoch_seed = [SEED]
 
     def loader_train():
         epoch_seed[0] += 1
-        return epoch_loader(dataset_train, args.batch_size, shuffle=True, drop_last=True,
-                            seed=epoch_seed[0], device=device)
+        return loader(train_data, args.batch_size, shuffle=True, drop_last=True, seed=epoch_seed[0])
 
     def loader_val():
-        return epoch_loader(dataset_validate, max(args.batch_size // 2, 1), shuffle=False,
-                            drop_last=False, device=device)
+        return loader(val_data, max(args.batch_size // 2, 1), shuffle=False, drop_last=False)
 
     trainer = Watermelon(
         filter_radius_coefficient=0.45,              # reference :60

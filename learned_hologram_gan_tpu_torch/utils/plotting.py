@@ -1,13 +1,16 @@
-"""PNG dumps of focal stacks (counterpart of
-``learned_hologram_gan_tpu/utils/plotting.py:multi_sample_plotter``).
+"""PNG dumps of focal stacks and training curves (counterpart of
+``learned_hologram_gan_tpu/utils/plotting.py``: ``multi_sample_plotter``,
+``training_process_visualizer``).
 
-PNGs are written by a small encoder on ``zlib`` and ``struct`` (8-bit RGB,
-no filtering), so the port needs no imaging package.  Pixel values follow
-``matplotlib.pyplot.imsave``: clip to [0, 1], then ``uint8(x * 255)``.
+PNGs of images are written by a small encoder on ``zlib`` and ``struct``
+(8-bit RGB, no filtering), so the port needs no imaging package.  Pixel
+values follow ``matplotlib.pyplot.imsave``: clip to [0, 1], then
+``uint8(x * 255)``.  The curves need matplotlib, imported at the call.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import struct
 import zlib
@@ -59,3 +62,39 @@ def multi_sample_plotter(
         save_rgb_image(tensor[i], save_dir or ".", str(titles[i]))
         for i in range(tensor.shape[0])
     ]
+
+
+def training_process_visualizer(
+    json_files: Sequence[str],
+    metrics: Sequence[str],
+    output_file: str = "plot.png",
+    labels: Optional[Sequence[str]] = None,
+) -> str:
+    """Plot metric curves of history JSONs against ``n_train`` (reference
+    utilities.py:506-565); ``metrics`` are '/'-separated key paths such as
+    ``train_losses_tensor/G_loss``.  Raises ``ImportError`` where
+    matplotlib is not installed."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    plt.figure(figsize=(10, 6))
+    for i, json_file in enumerate(json_files):
+        with open(json_file) as f:
+            data = json.load(f)
+        label = labels[i] if labels is not None else os.path.splitext(os.path.basename(json_file))[0]
+        for metric in metrics:
+            series = data
+            for key in metric.split("/"):
+                series = series[key]
+            plt.plot(data["n_train"], series, label=f"{label} - {metric.split('/')[-1]}")
+    plt.xlabel("Number of Training Samples")
+    plt.ylabel("Value")
+    plt.title(metrics[-1].split("/")[-1])
+    plt.legend(loc="best")
+    plt.grid(True)
+    plt.tight_layout()
+    plt.savefig(output_file)
+    plt.close()
+    return output_file
