@@ -71,8 +71,19 @@ configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
      makes (none at the 1080p and 4K grids, which are not powers of two);
   12. the three paths at a small size on the card (kernels) against the CPU
      (plain versions), same weights and draws (``card_check``), the train
-     step with each of the four options, in float32 and in bfloat16, and a
-     stage-2 pretraining step.
+     step with each of the four options, in float32 and in bfloat16, a
+     stage-2 pretraining step, and the serving path in float32 and int8;
+  13. serving (``learned_hologram_gan_tpu_torch/serve_smoke.py``):
+     ``tools/serve_poh``'s ``PohService`` at its full-width defaults over
+     HTTP in float32, bfloat16 and int8 (micro-batched /poh traffic, focal
+     stacks at 3 and 21 depths, the u8 / u16 wire formats), each reply its
+     served batch's row and each batch held to the path recomputed on the
+     card, each focal stack to the plain versions of K1 and K3, and the
+     launches of K1 (``conj_h``, ``from_spectrum``) and K3 to what the
+     server makes; the int8 executor (im2col + ``torch._int_mm``)
+     at every conv shape of the base-64 UNet bit for bit against exact CPU
+     products; the int8 pipeline at bench.py's configuration beside phase
+     7's bfloat16 rate, its split and peak memory; ``tools/bench_serve``.
 
 It raises on any failure.  It prints the kernels' JSON line and then, as
 its last line, ``{"ok": true, "device": {...}}``.  It exits non-zero at once
@@ -391,6 +402,12 @@ def phase_small_vs_cpu(dtype):
               "gradients {grad_rel:.2e} of max|g|; launches K1 {k1_modes}, K2 {k2_launches}, "
               "K3 {k3_launches}".format(**stats), flush=True)
         card_check.check_stage2_step(stats)
+        stats = card_check.serving_card_vs_cpu("cuda")
+        for mode, st in stats.items():
+            print("small serving path ({mode}), card vs CPU: POH phasor mean {poh_mean:.2e} p99 "
+                  "{poh_p99:.2e} max {poh_max:.2e}; focal stack p99.9 {stack_p999:.2e} max "
+                  "{stack_max:.2e}; launches {launches}".format(mode=mode, **st), flush=True)
+        card_check.check_serving(stats)
 
 
 def main():
@@ -400,7 +417,7 @@ def main():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr, flush=True)
         return 1
     from learned_hologram_gan_tpu_torch import (bf16_smoke, fft_ablation, fused_smoke, highres_smoke,
-                                                pretrain_smoke, train_smoke)
+                                                pretrain_smoke, serve_smoke, train_smoke)
     from learned_hologram_gan_tpu_torch.ops.cuda import build, conv_block, fft, spectral, transfer
 
     t0 = time.perf_counter()
@@ -484,7 +501,7 @@ def main():
 
     with Phase("bf16 main path: generate_poh --dtype bfloat16, then bench.py's configuration"):
         transfer.reset_launch_counts()
-        bf16_smoke.inference(card)
+        bf16_rate = bf16_smoke.inference(card)["poh_per_s"]
         k4_launches += transfer.apply_transfer_stack.launches
 
     with Phase("bf16 fused eval path: K5 bf16 on every block, then vs plain on the nine blocks"):
@@ -513,12 +530,22 @@ def main():
     train_kernels["k1_train"]["eval384_launches"] = eval384["fused"]["launches"]["k1"]["from_spectrum"]
     train_kernels["k3"]["eval384_launches"] = {k: eval384[k]["launches"]["k3"] for k in ("fused", "sequential")}
     train_kernels["k1_train"]["remat_step_launches"] = highres["remat_step"]["launches_remat"]["k1"]
-    if k4_launches:
-        raise AssertionError(f"K4 launched {k4_launches} times on the main paths, want 0")
 
     for dtype in ("float32", "bfloat16"):
         with Phase(f"small slices: card vs CPU, {dtype}"):
             phase_small_vs_cpu(dtype)
+
+    with Phase("serving: serve_poh at full width in float32, bfloat16 and int8, the int8 executor, "
+               "the int8 pipeline, bench_serve"):
+        transfer.reset_launch_counts()
+        serving = serve_smoke.run(card, bf16_rate)
+        k4_launches += transfer.apply_transfer_stack.launches
+    if k4_launches:
+        raise AssertionError(f"K4 launched {k4_launches} times on the main paths, want 0")
+    served = serving["float32"]["counts"]
+    k1["serve_launches"] = served["k1"]["conj_h"]
+    train_kernels["k1_train"]["serve_launches"] = served["k1"]["from_spectrum"]
+    train_kernels["k3"]["serve_launches"] = served["k3"]
 
     print("train steps at full width, batch 4, ratio 5 (host clock):", flush=True)
     for r in runs:
@@ -528,6 +555,10 @@ def main():
         r = pretrain[stage]
         print(f"  pretraining {stage}, batch 4: {r['steps_per_s']:.3f} steps/s, peak "
               f"{r['peak_gib']:.2f} GiB [{card}]", flush=True)
+    p = serving["pipeline"]
+    print(f"inference at bench.py's configuration, batch 16: int8 stage 1 {p['poh_per_s']:.2f} POH/s "
+          f"(spread {p['spread']:.2f}, peak {p['peak_gib']:.2f} GiB), bfloat16 module path "
+          f"{p['bf16_poh_per_s']:.2f} POH/s [{card}]", flush=True)
     print(f"total wall {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)
     for key in ("k2", "k2_two_h"):

@@ -26,6 +26,11 @@ weights and non-trivial BatchNorm statistics on the card and on the CPU;
 :func:`check_fused` holds the POHs to the phasor bounds above and counts
 K5's launches.
 
+:func:`serving_card_vs_cpu` runs the serving path (``PohService``, float32
+and the int8 stage 1) on the card and on the CPU from the same weights and
+int8 tree; :func:`check_serving` holds the POHs and focal stacks to the
+bounds above and the card's K1 and K3 launches to what the server makes.
+
 :func:`stage2_step_card_vs_cpu` takes one stage-2 pretraining loss and its
 gradients (``train/pretrain.ap2poh_loss``: the sigmoid low-pass, AP2POH,
 the spectrum loss) on the card and on the CPU from the same weights and
@@ -40,7 +45,7 @@ from u = 2^-8 as in tests/test_torch_bf16.py, and :func:`record_conv_tf32`
 also checks that the UNet and critic convs computed in bfloat16 on the
 card.
 
-``chip_smoke.py`` and ``tests/test_torch_cuda.py`` call all three.
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` call them all.
 """
 
 from __future__ import annotations
@@ -91,6 +96,14 @@ STAGE2 = dict(hw=32, pad=16, batch=2, frc=0.45, alpha=1e-3, beta=1e-5)
 # low-pass's fft2 and ifft2, the spectrum loss's fft2 and ifft2, and their
 # two adjoints in the backward (the low-pass runs without gradient)
 STAGE2_K3_PER_STEP = 12
+# the serving path (tools/serve_poh.PohService): 48 x 48 in a 64 x 64 grid
+# (K1 and K3 on the card), UNet base 4, buckets (1, 2), a batch-2 /poh and
+# a 3-depth focal stack; the card's launches over start-up and that
+# traffic: the warm-up's one conj_h K1 a bucket and one from_spectrum K1
+# and two K3 a depth bucket (4), then one conj_h for the batch, one
+# from_spectrum and two K3 for the stack
+SERVE = dict(hw=48, pad=8, unet_base=4, buckets=(1, 2), batch=2, depths=(4.5e-4, 8e-4, 1.3e-3))
+SERVE_LAUNCHES = dict(k1={"conj_h": 3, "from_spectrum": 5}, k3=10)
 
 U_BF16 = 2.0**-8
 # bfloat16, card against CPU.  POHs: the JAX package's bfloat16 POH gate,
@@ -551,6 +564,73 @@ def stage2_step_card_vs_cpu(device: str | torch.device = "cuda", seed: int = 9) 
         k1_modes=dict(spectral.row_pass.launches_by_mode),
         k2_launches=spectral.row_adjoint.launches, k3_launches=fft.fft_axis.launches,
     )
+
+
+def serving_card_vs_cpu(device: str | torch.device = "cuda", seed: int = 11) -> dict:
+    """The serving path (``tools/serve_poh.PohService``, float32 and the
+    int8 stage 1) on the CPU (plain versions) and on ``device`` (K1, K3)
+    from the same weights, the same int8 tree (calibrated once on the CPU
+    and read by both servers from its ``.npz``) and the same RGBD; both
+    focal stacks from the CPU's POH.  Returns the worst POH phasor and
+    focal-stack differences of each mode and the card's launches."""
+    from .config import GeneratorConfig
+    from .models import make_generator
+    from .nn.quant import quantize_unet_q8, save_qtree
+    from .ops.cuda import fft, spectral
+    from .tools import serve_poh
+    from .train import checkpoint as ckpt_lib
+
+    sv = SERVE
+    hw, pad, base = sv["hw"], sv["pad"], sv["unet_base"]
+    rng = np.random.default_rng(seed)
+    cfg = GeneratorConfig(rows=hw, cols=hw, pad_size=pad, unet_base_features=base)
+    model = randomize_batch_norms(make_generator(cfg, seed=seed, device="cpu"), rng)
+    rgbd = rng.random((sv["batch"], 4, hw, hw)).astype(np.float32)
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="card_check_serve_") as tmp:
+        weights, qtree = os.path.join(tmp, "G.msgpack"), os.path.join(tmp, "qtree.npz")
+        ckpt_lib.save_weights(weights, model)
+        save_qtree(quantize_unet_q8(model.part1.unet, torch.from_numpy(rgbd).permute(0, 2, 3, 1)), qtree)
+        for quantize in ("none", "int8"):
+            outs = []
+            for dev in ("cpu", str(device)):
+                spectral.reset_launch_counts()
+                fft.fft_axis.launches = 0
+                service = serve_poh.PohService(weights, hw, hw, pad, 0.45, base, "float32", sv["buckets"],
+                                               cpu=dev == "cpu", quantize=quantize, qtree_path=qtree)
+                try:
+                    poh = service.submit(rgbd)
+                    stack = service.focal_stack(outs[0][0] if outs else poh, list(sv["depths"]))
+                finally:
+                    service.close()
+                launches = dict(k1=dict(spectral.row_pass.launches_by_mode), k3=fft.fft_axis.launches)
+                outs.append((poh, stack))
+            (cpu_poh, cpu_stack), (card_poh, card_stack) = outs
+            mean, p99, worst = poh_phasor_errors(card_poh, cpu_poh)
+            s = np.abs(card_stack - cpu_stack)
+            stats[quantize] = dict(poh_mean=mean, poh_p99=p99, poh_max=worst,
+                                   stack_p999=float(np.quantile(s, 0.999)), stack_max=float(s.max()),
+                                   finite=bool(np.isfinite(card_poh).all() and np.isfinite(card_stack).all()),
+                                   launches=launches)
+    return stats
+
+
+def check_serving(stats: dict) -> None:
+    """Raise ``AssertionError`` naming every bound that ``stats`` (from
+    :func:`serving_card_vs_cpu`) breaks: the POH phasor bounds and the
+    propagation bounds in both modes, finite output, and the card's K1 and
+    K3 launches (:data:`SERVE_LAUNCHES`)."""
+    bounds = [("poh_mean", POH_MEAN_TOL), ("poh_p99", POH_P99_TOL), ("poh_max", POH_MAX_TOL),
+              ("stack_p999", STACK_P999_TOL), ("stack_max", STACK_MAX_TOL)]
+    problems = []
+    for mode, st in stats.items():
+        problems += [f"{mode}: {k} {st[k]:.3e} > {tol:g}" for k, tol in bounds if not st[k] <= tol]
+        if not st["finite"]:
+            problems.append(f"{mode}: non-finite output")
+        if st["launches"] != SERVE_LAUNCHES:
+            problems.append(f"{mode}: launches {st['launches']}, want {SERVE_LAUNCHES}")
+    if problems:
+        raise AssertionError("serving path: card and CPU disagree: " + "; ".join(problems))
 
 
 def check_stage2_step(stats: dict) -> None:

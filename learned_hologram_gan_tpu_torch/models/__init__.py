@@ -7,6 +7,7 @@ from .generator import (
     RGBD2AP,
     double_phase_encode,
     generator_apply_fused,
+    generator_apply_quant,
     make_generator,
     make_generator_plan,
 )
@@ -19,6 +20,7 @@ __all__ = [
     "WGANGPDiscriminator192",
     "double_phase_encode",
     "generator_apply_fused",
+    "generator_apply_quant",
     "make_generator",
     "make_generator_plan",
 ]

@@ -9,7 +9,8 @@
   and imaginary parts, then double-phase encoding.
 * :class:`Generator` composes them (reference generator.py:15-59).
 * :func:`generator_apply_fused` is its eval-only forward with stage 1
-  through the BN-folded fused UNet (``nn/fused_unet.py``, kernel K5).
+  through the BN-folded fused UNet (``nn/fused_unet.py``, kernel K5), and
+  :func:`generator_apply_quant` with stage 1 in int8 (``nn/quant.py``).
 
 The propagator state is an explicit :class:`~..ops.asm.PropagatorPlan`
 argument, as in the JAX package.  Layout is NCHW throughout.
@@ -134,6 +135,42 @@ def generator_apply_fused(
     y = unet_apply_fused(
         unet, rgbd.permute(0, 2, 3, 1).to(unet.dtype), polyphase_level0=polyphase_level0,
     )
+    y = y.permute(0, 3, 1, 2).float()
+    amp = generator.part1.amplitude_scaler * y[:, :3]
+    phs = (2.0 * np.pi) * y[:, 3:]
+    return generator.part2(plan, amp, phs)
+
+
+@torch.no_grad()
+def generator_apply_quant(
+    generator: Generator,
+    qtree: dict,
+    plan: asm.PropagatorPlan,
+    rgbd: torch.Tensor,
+) -> torch.Tensor:
+    """Eval-only Generator forward with the int8 stage-1 UNet.
+
+    ``qtree`` comes from ``nn/quant.py`` over ``generator.part1.unet``: a
+    full-integer tree (it has ``"edges"``) runs :func:`~..nn.quant.
+    unet_apply_q8`, a dynamic one :func:`~..nn.quant.unet_apply_quant` in
+    the generator's compute dtype.  Then the 1.1x amplitude / 2*pi phase
+    split and stage 2 in float, as the module runs it.  Raises
+    ``ValueError`` for a UNet the quant walker does not know.
+    """
+    from ..nn.fused_unet import supported
+    from ..nn.quant import unet_apply_q8, unet_apply_quant
+
+    unet = generator.part1.unet
+    if not supported(unet):
+        raise ValueError(
+            "generator_apply_quant supports only the standard UNet parameter layout "
+            "(every residual block with its 1x1 shortcut); use the generator's forward instead"
+        )
+    x = rgbd.permute(0, 2, 3, 1)
+    if "edges" in qtree:
+        y = unet_apply_q8(qtree, x)
+    else:
+        y = unet_apply_quant(qtree, unet, x, dtype=unet.dtype)
     y = y.permute(0, 3, 1, 2).float()
     amp = generator.part1.amplitude_scaler * y[:, :3]
     phs = (2.0 * np.pi) * y[:, 3:]

@@ -1,7 +1,8 @@
 """Band-limited angular-spectrum (ASM) propagation on ``torch.fft``.
 
-Counterpart of ``learned_hologram_gan_tpu/ops/asm.py`` for the inference
-and GAN-training slices.  The propagation is
+Counterpart of ``learned_hologram_gan_tpu/ops/asm.py``: the fixed-distance,
+focal-stack and base primitives, and ``freq2amp_at``, the serving focal
+stack at any distances.  The propagation is
 ``crop(ifft2(fft2(pad(A * exp(i*phi))) * H * mask))`` with
 ``H = exp(-2*pi*i * z * w)`` and ``w = sqrt(max(1/lambda^2 - fx^2 - fy^2, 0))``
 (reference angular_spectrum_method.py:68-94, :155-171, :195-213).  Because
@@ -320,6 +321,77 @@ def _fused_apply(
 
 
 # ---------------------------------------------------------------------------
+# Base propagation primitives (reference base class :68-139)
+# ---------------------------------------------------------------------------
+
+
+def propagate(
+    plan: PropagatorPlan,
+    amp: torch.Tensor,
+    phs: torch.Tensor,
+    distances: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Amplitude+phase -> |field| at ``distances`` (reference __call__ :68-94).
+
+    As in the reference base class, the input batch axis and the distance
+    axis are the *same* leading axis (a field with leading dim 1 or D
+    broadcasts against H of leading dim D).  For batch x distance use
+    :func:`propagate_batch_multi`.  On a grid K1 supports, a (1, C, rows,
+    cols) field goes to every distance in one call, and a batch of B
+    against 1 or B distances takes one distance per sample (``per_plane``).
+    """
+    use_plan_stack = distances is None
+    if use_plan_stack:
+        _need_distances(plan)
+        distances = plan.distances
+    distances = torch.atleast_1d(torch.as_tensor(distances, dtype=torch.float32,
+                                                 device=plan.w_grid.device))
+    g = field(amp, phs)
+    if _fused_ok(plan) and g.dim() == 4:
+        b, d = g.shape[0], int(distances.shape[0])
+        if b == 1:
+            return _fused_apply(plan, g, distances)[0].abs()
+        if d in (1, b):
+            z = distances.expand(b).contiguous()
+            return _fused_apply(plan, g, z, per_plane=True)[:, 0].abs()
+    h = _h_stack(plan) if use_plan_stack else _transfer_function(plan.w_grid, distances)
+    g0 = _fft2(pad(plan, g))
+    return crop(plan, _ifft2(g0 * (h * plan.mask))).abs()
+
+
+def propagate_p2i(
+    plan: PropagatorPlan, phs: torch.Tensor, distances: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Phase-only -> intensity |field|^2 (reference propagate_P2I :131-139)."""
+    return propagate(plan, torch.ones_like(phs), phs, distances) ** 2
+
+
+def propagate_ap2ap(
+    plan: PropagatorPlan,
+    amp_phs: torch.Tensor,
+    distances: Optional[torch.Tensor] = None,
+    backward: bool = False,
+) -> torch.Tensor:
+    """6-channel amp/phase -> 6-channel amp/phase at ``distances``.
+
+    Input (B, 6, rows, cols), channels interleaved per colour [a_r, p_r,
+    a_g, p_g, a_b, p_b]; output [amps(3), phases(3)] (reference :96-129,
+    :338-368).  ``backward=True`` multiplies by conj(H), the fixed-distance
+    subclass's backward direction (reference :365-367).  The input is at
+    the unpadded (rows, cols) grid and is padded here, as in the JAX
+    package (the reference pads an input it assumes already padded).
+    """
+    b = amp_phs.shape[0]
+    ap = amp_phs.reshape(b, 3, 2, amp_phs.shape[-2], amp_phs.shape[-1])
+    g = field(ap[:, :, 0], ap[:, :, 1])
+    h = _h_stack(plan) if distances is None else transfer_function(plan, distances)
+    if backward:
+        h = torch.conj(h)
+    gz = crop(plan, _ifft2(_fft2(pad(plan, g)) * h))
+    return torch.cat([gz.abs(), _angle(gz)], dim=1)
+
+
+# ---------------------------------------------------------------------------
 # Fixed-distance primitives (reference subclass :263-466)
 # ---------------------------------------------------------------------------
 
@@ -479,6 +551,25 @@ def freq2ap_all_distances(
     gz = g0[:, None] * (_h_stack(plan) * plan.mask)[None]  # (B, D, C, Rp, Cp)
     gz = crop(plan, _ifft2(gz.reshape(gz.shape[0] * gz.shape[1], *gz.shape[2:])))
     return gz.abs(), _angle(gz)
+
+
+def freq2amp_at(
+    plan: PropagatorPlan, g0: torch.Tensor, distances: torch.Tensor
+) -> torch.Tensor:
+    """Spectrum (B, C, Rp, Cp) -> amplitude (B, D, C, rows, cols) at any
+    ``distances`` (D,), H computed for them (the serving focal stack; the
+    reference's forward_from_filtered_frequency, :524-531, is pinned to the
+    cached stack).  On a grid K1 supports, one ``from_spectrum`` call of
+    ``propagate_planes``; else the ``torch.fft`` chain with
+    ``transfer_function(plan, distances) * plan.mask``."""
+    distances = torch.atleast_1d(torch.as_tensor(distances, dtype=torch.float32,
+                                                 device=plan.w_grid.device))
+    if _fused_ok(plan):
+        return _fused_apply(plan, g0, distances, from_spectrum=True).abs()
+    gz = g0[:, None] * (transfer_function(plan, distances) * plan.mask)[None]
+    b, d = gz.shape[0], gz.shape[1]
+    gz = crop(plan, _ifft2(gz.reshape(b * d, *gz.shape[2:])))
+    return gz.abs().reshape(b, d, *gz.shape[1:])
 
 
 def draw_distance_indices(

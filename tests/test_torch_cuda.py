@@ -440,3 +440,37 @@ def test_fused_generator_on_card_matches_cpu(device):
     """generator_apply_fused at 48 x 48 on the card (K5 on
     all nine blocks, seven with polyphase level 0) against the CPU."""
     card_check.check_fused(card_check.fused_card_vs_cpu(device))
+
+
+def test_int8_executor_on_card_matches_cpu(device):
+    """im2col + torch._int_mm (cuBLASLt's int8 GEMM) at every conv and
+    up-conv shape of a base-8 UNet at batch 2 of 32^2, bit for bit against
+    the exact CPU products (serve_smoke._exact_cpu)."""
+    from learned_hologram_gan_tpu_torch import serve_smoke
+    from learned_hologram_gan_tpu_torch.ops import int8
+
+    rng = np.random.default_rng(3)
+    for path, xs, ws in serve_smoke.executor_shapes(batch=2, rows=32, cols=32, base=8):
+        x = torch.from_numpy(rng.integers(-127, 128, xs, dtype=np.int8))
+        w = torch.from_numpy(rng.integers(-127, 128, ws, dtype=np.int8))
+        if len(ws) == 2:
+            got = int8.matmul(x.to(device).reshape(-1, xs[-1]), w.to(device)).reshape(*xs[:3], -1)
+        else:
+            got = int8.conv2d(x.to(device), w.to(device))
+        assert torch.equal(got.cpu(), serve_smoke._exact_cpu(x, w)), path
+
+
+def test_int_mm_refuses_unpadded_shapes_and_the_wrapper_pads(device):
+    a = torch.ones(8, 36, dtype=torch.int8, device=device)
+    b = torch.ones(36, 6, dtype=torch.int8, device=device)
+    with pytest.raises(RuntimeError):
+        torch._int_mm(a, b)
+    from learned_hologram_gan_tpu_torch.ops import int8
+
+    assert torch.equal(int8.matmul(a, b), torch.full((8, 6), 36, dtype=torch.int32, device=device))
+
+
+def test_serving_path_on_card_matches_cpu(device):
+    """PohService in float32 and int8 on the card (K1, K3) against the CPU
+    (plain versions), launches as the server makes them."""
+    card_check.check_serving(card_check.serving_card_vs_cpu(device))
