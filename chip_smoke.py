@@ -83,7 +83,21 @@ configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
      server makes; the int8 executor (im2col + ``torch._int_mm``)
      at every conv shape of the base-64 UNet bit for bit against exact CPU
      products; the int8 pipeline at bench.py's configuration beside phase
-     7's bfloat16 rate, its split and peak memory; ``tools/bench_serve``.
+     7's bfloat16 rate, its split and peak memory; ``tools/bench_serve``;
+  14. multi-device and polyphase training at full width
+     (``learned_hologram_gan_tpu_torch/parallel_smoke.py``), in float32 and
+     bfloat16: the data-parallel step at world size 1 under NCCL against
+     the step with no mesh, the spatial mesh of 1 (row-sharded padded
+     planes, every FFT through the all-to-all pencil path, no K1, K2 or
+     K3) against the plain step with both steps' peak memory, the
+     polyphase UNet's level 0 against the plain one (outputs, running
+     statistics, gradients) and the polyphase step beside the plain one
+     with both steps/s and peak memory, the float32 BatchNorm of a mesh
+     and of the phase domain against ``F.batch_norm`` in float64 at every
+     BatchNorm shape of the step, twice differentiated; ``generate_poh
+     --mesh_devices 1`` and bench.py's focal stack through a
+     distance-sharded plan; a 2-rank NCCL data-parallel step where the
+     host has two cards.
 
 It raises on any failure.  It prints the kernels' JSON line and then, as
 its last line, ``{"ok": true, "device": {...}}``.  It exits non-zero at once
@@ -417,7 +431,7 @@ def main():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr, flush=True)
         return 1
     from learned_hologram_gan_tpu_torch import (bf16_smoke, fft_ablation, fused_smoke, highres_smoke,
-                                                pretrain_smoke, serve_smoke, train_smoke)
+                                                parallel_smoke, pretrain_smoke, serve_smoke, train_smoke)
     from learned_hologram_gan_tpu_torch.ops.cuda import build, conv_block, fft, spectral, transfer
 
     t0 = time.perf_counter()
@@ -547,6 +561,18 @@ def main():
     train_kernels["k1_train"]["serve_launches"] = served["k1"]["from_spectrum"]
     train_kernels["k3"]["serve_launches"] = served["k3"]
 
+    with Phase("multi-device and polyphase training at full width: data-parallel (NCCL), spatial mesh, "
+               "polyphase level 0, generate_poh --mesh_devices"):
+        transfer.reset_launch_counts()
+        par = parallel_smoke.run(card)
+        if transfer.apply_transfer_stack.launches:
+            raise AssertionError("K4 launched on the parallel legs, want 0")
+    k1["mesh_launches"] = par["generate_poh"]["cli_launches"]["k1"]
+    for key, name in (("k1_train", "k1"), ("k2", "k2"), ("k3", "k3")):
+        train_kernels[key]["parallel_launches"] = {
+            f"{dtype} {leg}": launches[leg][name] for dtype, legs in par["legs"].items()
+            for launches in (legs["launches"],) for leg in ("dp", "spatial", "poly")}
+
     print("train steps at full width, batch 4, ratio 5 (host clock):", flush=True)
     for r in runs:
         print(f"  {r['label']:45s} {r['steps_per_s']:.3f} steps/s, peak {r['peak_gib']:.2f} GiB; "
@@ -555,6 +581,12 @@ def main():
         r = pretrain[stage]
         print(f"  pretraining {stage}, batch 4: {r['steps_per_s']:.3f} steps/s, peak "
               f"{r['peak_gib']:.2f} GiB [{card}]", flush=True)
+    for dtype, legs in par["legs"].items():
+        print(f"  {dtype} polyphase level 0 {legs['steps_per_s']['poly']:.3f} steps/s, peak "
+              f"{legs['peak_gib']['poly']:.2f} GiB; plain {legs['steps_per_s']['plain']:.3f} steps/s, peak "
+              f"{legs['peak_gib']['plain']:.2f} GiB; one step's peak on the spatial mesh of 1 "
+              f"{legs['step_peak_gib']['spatial']:.2f} GiB, plain {legs['step_peak_gib']['plain']:.2f} GiB "
+              f"[{card}]", flush=True)
     p = serving["pipeline"]
     print(f"inference at bench.py's configuration, batch 16: int8 stage 1 {p['poh_per_s']:.2f} POH/s "
           f"(spread {p['spread']:.2f}, peak {p['peak_gib']:.2f} GiB), bfloat16 module path "

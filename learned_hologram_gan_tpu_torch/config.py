@@ -2,9 +2,8 @@
 ``learned_hologram_gan_tpu/config.py``).
 
 Carried: the padded-grid geometry (with ``pad_cols_override``), the
-physics constants, the generator widths, compute dtype and ``remat``, and
-the critic, loss and training dataclasses.  ``polyphase_level0`` has no
-counterpart here yet.
+physics constants, the generator widths, compute dtype, ``remat`` and
+``polyphase_level0``, and the critic, loss and training dataclasses.
 """
 
 from __future__ import annotations
@@ -74,6 +73,7 @@ class GeneratorConfig:
     use_modulation: bool = True  # False = ablation fakeChannelWiseSymmetricConv
     dtype: str = "float32"  # conv compute dtype, "float32" or "bfloat16"; parameters stay float32
     remat: bool = False  # recompute each UNet block's activations in the backward (1080p/4K)
+    polyphase_level0: bool = False  # UNet level 0 in the space-to-depth phase domain (exact)
     pad_cols_override: Optional[int] = None  # see OpticsConfig
 
     def optics(self) -> OpticsConfig:

@@ -18,6 +18,12 @@ asked otherwise)::
 as the JAX package and the port's trainer write them (read by
 ``train/flax_msgpack.py``, carried by ``convert.py``), or a torch
 ``state_dict`` of the port's Generator.
+
+``--mesh_devices N`` splits the focal stack's distances over N ranks
+(``parallel.shard_distance_stack``; N must divide ``--num_intervals``),
+one process per card, under ``torchrun --nproc_per_node N`` or started by
+the CLI itself; every rank runs the generator and its share of the
+planes, and rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -61,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--unet_base_features", type=int, default=64,
                         help="UNet width multiplier (reference architecture = 64).")
     parser.add_argument("--mesh_devices", type=int, default=0,
-                        help="Shard the focal-stack distance axis over this many devices.")
+                        help="Shard the focal-stack distance axis over this many devices, one "
+                             "process each.")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (cuda unless asked otherwise)")
     return parser
@@ -76,9 +83,20 @@ def save_poh(poh_np: np.ndarray, path: str) -> None:
         np.save(f, poh_np)
 
 
+def _rank_entry(rank: int, world_size: int, argv: Sequence[str]):
+    """One rank of a run the CLI started itself: rank 0's result, its
+    tensors as numpy arrays (a tensor would cross the process boundary as
+    shared memory, which outlives no rank)."""
+    result = main(argv)
+    if rank:
+        return None
+    return {k: v.cpu().numpy() if torch.is_tensor(v) else v for k, v in result.items()}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the CLI on ``argv``; returns the POH, the focal stack (or None)
-    and the written PNG paths."""
+    and the written PNG paths (with ``--mesh_devices`` started here: rank
+    0's, on the CPU)."""
     from .config import GeneratorConfig, OpticsConfig
     from .data import ImgDepthDataset
     from .models import make_generator, make_generator_plan
@@ -88,12 +106,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from .utils import tensor_normalizor_2d
     from .utils.plotting import multi_sample_plotter
 
+    from .parallel import mesh as mesh_lib
+    from .training_model import start_mesh
+
     args = build_parser().parse_args(argv)
-    if args.mesh_devices:
-        raise NotImplementedError("--mesh_devices is not ported yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but no CUDA device is available")
+    mesh = None
+    if args.mesh_devices:
+        mesh, ranks = start_mesh(argv, args.mesh_devices, device, _rank_entry)
+        if mesh is None:
+            return {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in ranks[0].items()}
+        device = mesh_lib.local_device(device)
+    main_rank = mesh is None or mesh.coords[0] == 0
+    say = print if main_rank else (lambda *a: None)
 
     dataset_test = ImgDepthDataset(
         img_path=args.img_path,
@@ -120,16 +147,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     if args.model_path is not None and os.path.exists(args.model_path):
         ckpt_lib.load_weights(args.model_path, generator)
-        print(f"Generator loaded from {args.model_path}")
+        say(f"Generator loaded from {args.model_path}")
     elif args.model_path is not None:
-        print(f"WARNING: model path {args.model_path} not found; using random init")
+        say(f"WARNING: model path {args.model_path} not found; using random init")
 
     infer = build_infer_fn(generator)
     rgbd = torch.from_numpy(np.asarray(dataset_test[args.index])).to(device)[None]
     poh = infer(gen_plan, rgbd)
 
-    save_poh(poh[0].cpu().numpy(), args.poh_output_path)
-    print(f"POH data saved at {args.poh_output_path}")
+    if main_rank:
+        save_poh(poh[0].cpu().numpy(), args.poh_output_path)
+    say(f"POH data saved at {args.poh_output_path}")
 
     result = {"poh": poh, "focal_stack": None, "png_paths": []}
     if args.propagate:
@@ -143,14 +171,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         )
         distances = np.linspace(args.min_distance, args.max_distance, args.num_intervals)
         plan = asm.make_plan(optics, distances=distances, device=device)
+        if mesh is not None:
+            plan = mesh_lib.shard_distance_stack(plan, mesh)
         with torch.inference_mode():
             amp_hat = asm.propagate_batch_multi(plan, torch.ones_like(poh), poh)
             imgs = tensor_normalizor_2d(amp_hat).cpu().numpy()
         result["focal_stack"] = amp_hat
-        result["png_paths"] = multi_sample_plotter(
-            imgs, titles=None, save_dir=args.output_image_dir
-        )
-        print(f"Propagated images saved at {args.output_image_dir}")
+        if main_rank:
+            result["png_paths"] = multi_sample_plotter(
+                imgs, titles=None, save_dir=args.output_image_dir
+            )
+        say(f"Propagated images saved at {args.output_image_dir}")
     return result
 
 

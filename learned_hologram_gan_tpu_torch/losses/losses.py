@@ -5,11 +5,20 @@ Every function takes and returns float32 tensors in NCHW layout.  The
 "focal" variants weight the error map by its own detached, max-normalized
 magnitude: gradients flow through the raw difference only (``.detach()``
 where the JAX package has ``stop_gradient``).
+
+Inside ``parallel.collectives.data_parallel`` (each rank holding its rows
+of the batch) the terms that reduce across samples reduce over the global
+batch, as the JAX package's do over a batch-sharded axis: the focal
+weights' normalizing maximum, and the TV difference's batch means.  A
+batch mean of a per-sample quantity needs nothing: the train step
+averages the ranks' values.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel.collectives import data_max, data_mean
 
 
 def total_variation(x: torch.Tensor) -> torch.Tensor:
@@ -27,8 +36,9 @@ def total_variation_for_poh(x: torch.Tensor) -> torch.Tensor:
 
 
 def total_variation_loss(y_hat: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """| TV(y_hat) - TV(y) | (reference :94-98)."""
-    return (total_variation(y_hat) - total_variation(y)).abs()
+    """| TV(y_hat) - TV(y) | (reference :94-98), each TV over the global
+    batch."""
+    return (data_mean(total_variation(y_hat)) - data_mean(total_variation(y))).abs()
 
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -51,7 +61,7 @@ def amp_phs_loss(amp_hat, phs_hat, amp, phs, alpha: float = 1.0) -> torch.Tensor
 def focal_freq_loss(fake_freq: torch.Tensor, real_freq: torch.Tensor) -> torch.Tensor:
     """Self-weighted frequency L2 (reference :123-132; defined but unused)."""
     diff = (fake_freq - real_freq).abs()
-    w = (diff / diff.max()).detach()
+    w = (diff / data_max(diff.max())).detach()
     return ((diff * w) ** 2).mean()
 
 
@@ -70,8 +80,8 @@ def focal_sincos_phase_gradient_loss(fake_phase, real_phase) -> torch.Tensor:
     """Self-weighted L1 on spatial gradients of (sin, cos) phase
     (reference :135-163)."""
     d1, d2 = _gradient_diffs(fake_phase, real_phase)
-    w1 = (d1 / d1.max()).detach()
-    w2 = (d2 / d2.max()).detach()
+    w1 = (d1 / data_max(d1.max())).detach()
+    w2 = (d2 / data_max(d2.max())).detach()
     return (d1 * w1).mean() + (d2 * w2).mean()
 
 
@@ -84,7 +94,7 @@ def phase_sincos_gradient_loss(fake_phase, real_phase) -> torch.Tensor:
 def focal_sincos_phase_loss(fake_phase, real_phase) -> torch.Tensor:
     """Self-weighted L1 directly on (sin, cos) phase (reference :187-203)."""
     d = (_sincos(fake_phase) - _sincos(real_phase)).abs()
-    w = (d / d.max()).detach()
+    w = (d / data_max(d.max())).detach()
     return (d * w).mean()
 
 

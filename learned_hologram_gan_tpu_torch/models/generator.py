@@ -49,11 +49,12 @@ class RGBD2AP(nn.Module):
     """Stage 1: RGBD (B, 4, H, W) -> (amp, phs), each (B, 3, H, W)."""
 
     def __init__(self, amplitude_scaler: float = 1.1, base_features: int = 64,
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 polyphase_level0: bool = False):
         super().__init__()
         self.amplitude_scaler = amplitude_scaler
         self.unet = UNet(in_channels=4, output_channels=6, base_features=base_features,
-                         dtype=dtype, remat=remat)
+                         dtype=dtype, remat=remat, polyphase_level0=polyphase_level0)
 
     @full_f32_convs()
     def forward(self, rgbd: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -103,7 +104,8 @@ class Generator(nn.Module):
         super().__init__()
         self.config = config
         dtype = compute_dtype(config.dtype)
-        self.part1 = RGBD2AP(config.amplitude_scaler, config.unet_base_features, dtype, config.remat)
+        self.part1 = RGBD2AP(config.amplitude_scaler, config.unet_base_features, dtype, config.remat,
+                             config.polyphase_level0)
         self.part2 = AP2POH(config.kernel_size, config.use_modulation, dtype)
 
     def forward(self, plan: asm.PropagatorPlan, rgbd: torch.Tensor) -> torch.Tensor:

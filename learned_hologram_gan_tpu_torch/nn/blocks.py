@@ -28,6 +28,7 @@ step updates them once, as the plain step does.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Callable, Optional, Tuple
 
@@ -36,6 +37,18 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+
+from ..parallel import collectives
+from .polyphase import (
+    depth_to_space,
+    poly_concat,
+    poly_conv1x1,
+    poly_conv3x3,
+    poly_pool,
+    poly_upconv_gemm,
+    space_to_depth,
+    tile4,
+)
 
 # BatchNorm as flax.linen.BatchNorm: epsilon 1e-5, momentum 0.99 on the
 # running average, which is torch's momentum 0.01.
@@ -117,6 +130,80 @@ def _conv(in_ch: int, features: int, kernel: int, dtype: torch.dtype = torch.flo
                   compute_dtype=dtype)
 
 
+def _moments(xf: torch.Tensor, dims: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Biased float32 mean and variance of ``xf`` over ``dims``, as flax's
+    fast variance ``E[x^2] - E[x]^2``: sums over the count.  Inside
+    ``parallel.collectives.data_parallel`` over the global batch: the
+    per-rank sums all-reduce (differentiably, twice over) and divide by
+    the global count, so one rank computes what no mesh does."""
+    group = collectives.data_group()
+    count = math.prod(xf.shape[d] for d in dims)
+    sums = torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)])
+    if group is not None:
+        count *= torch.distributed.get_world_size(group)
+        sums = collectives.all_reduce(sums, group)
+    mean, mean2 = sums[0] / count, sums[1] / count
+    return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+
+
+def _two_pass(x: torch.Tensor, dims, shape, count: int, group, reduce):
+    """Mean and ``E[(x - mean)^2]`` over ``dims`` (over ``group``'s global
+    batch when given), summing across ranks with ``reduce``."""
+    def total(t):
+        return t if group is None else reduce(t, group)
+
+    mean = total(x.sum(dim=dims)) / count
+    return mean, total(((x - mean.reshape(shape)) ** 2).sum(dim=dims)) / count
+
+
+class _BatchNormF32(torch.autograd.Function):
+    """Train-mode float32 BatchNorm over ``dims`` with the batch's
+    statistics (the global batch's over ``group``), where ``F.batch_norm``
+    cannot serve: a data-parallel region, the phase domain, one value per
+    channel.  ``F.batch_norm``'s arithmetic: the two-pass variance, and the
+    fused backward ``invstd * (g - mean(g) - xhat * mean(g * xhat))`` with
+    ``g = dy * weight``, which keeps only ``x``, the weight, the mean and
+    ``invstd`` for the backward.  On the card, against a float64 critic at
+    384² (feature_d 32, batch 4), its penalty gradients lie 2.2e-4 of
+    max |g| off, cuDNN's BatchNorm's 5.5e-4 (PERF.md §6).  The
+    backward is written in differentiable ops (the statistics recomputed
+    from ``x`` under ``create_graph``), so the WGAN-GP double backward
+    runs through it.  Returns the output, the mean and flax's fast
+    variance (for the running statistics; neither differentiable)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, dims, group):
+        shape = [1 if d in dims else n for d, n in enumerate(x.shape)]
+        count = math.prod(x.shape[d] for d in dims) * (
+            1 if group is None else torch.distributed.get_world_size(group))
+        mean, var = _two_pass(x, dims, shape, count, group, collectives.sum_no_grad)
+        sq = x.pow(2).sum(dim=dims)
+        fast = torch.clamp((sq if group is None else collectives.sum_no_grad(sq, group)) / count
+                           - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = (x - mean.reshape(shape)) * (invstd * weight).reshape(shape) + bias.reshape(shape)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.cfg = (eps, dims, group, count, shape)
+        ctx.mark_non_differentiable(mean, fast)
+        return y, mean, fast
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _fast):
+        x, weight, mean, invstd = ctx.saved_tensors
+        eps, dims, group, count, shape = ctx.cfg
+        if torch.is_grad_enabled():  # create_graph: the statistics as functions of x
+            mean, var = _two_pass(x, dims, shape, count, group, collectives.all_reduce)
+            invstd = torch.rsqrt(var + eps)
+        xhat = (x - mean.reshape(shape)) * invstd.reshape(shape)
+        g = dy * weight.reshape(shape)
+        sums = torch.stack([g.sum(dim=dims), (g * xhat).sum(dim=dims)])
+        if group is not None:
+            sums = collectives.all_reduce(sums, group)
+        dx = invstd.reshape(shape) * (g - (sums[0] / count).reshape(shape)
+                                      - xhat * (sums[1] / count).reshape(shape))
+        return dx, (dy * xhat).sum(dim=dims), dy.sum(dim=dims), None, None, None
+
+
 class BatchNorm(nn.BatchNorm2d):
     """``flax.linen.BatchNorm`` over NCHW channels.
 
@@ -132,30 +219,46 @@ class BatchNorm(nn.BatchNorm2d):
     reduce in float32, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
     runs in float32, and the result rounds once to bfloat16; the running
     statistics stay float32.  A float32 input takes ``F.batch_norm``, but
-    for a single value per channel in train mode, which it refuses.
+    for a single value per channel in train mode, which it refuses
+    (:class:`_BatchNormF32` then).
+
+    Inside ``parallel.collectives.data_parallel`` the train-mode statistics
+    are the global batch's (the per-rank sums all-reduced, as GSPMD
+    reduces over a batch-sharded axis; a float32 input through
+    :class:`_BatchNormF32`, ``F.batch_norm``'s arithmetic), and every
+    rank's running statistics move alike.  ``nn.SyncBatchNorm`` is not
+    used: it folds the unbiased variance into the running statistics, and
+    its backward is not twice differentiable.
     """
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.update_stats = True
 
-    def _batch_stats(self, x: torch.Tensor):
-        """Biased float32 batch statistics (``force_float32_reductions``),
-        folded into the running ones unless frozen."""
-        xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    def fold_batch_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Move the running statistics toward a batch's, unless frozen."""
         if self.update_stats:
             with torch.no_grad():
                 self.running_mean.lerp_(mean.detach(), self.momentum)
                 self.running_var.lerp_(var.detach(), self.momentum)
                 self.num_batches_tracked.add_(1)
+
+    def _batch_stats(self, x: torch.Tensor):
+        """Biased float32 batch statistics (``force_float32_reductions``),
+        folded into the running ones unless frozen."""
+        mean, var = _moments(x.float(), (0, 2, 3))
+        self.fold_batch_stats(mean, var)
         return mean, var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # F.batch_norm refuses one value per channel in train mode (a batch-1
-        # 1 x 1 bottleneck); flax normalizes it to the bias, as this path does
-        if x.dtype != torch.float32 or (self.training and x.numel() == x.shape[1]):
+        # 1 x 1 bottleneck); flax normalizes it to the bias, as _BatchNormF32 does
+        group = collectives.data_group()
+        if x.dtype == torch.float32 and self.training and (x.numel() == x.shape[1] or group is not None):
+            y, mean, fast = _BatchNormF32.apply(x, self.weight, self.bias, self.eps, (0, 2, 3), group)
+            self.fold_batch_stats(mean, fast)
+            return y
+        if x.dtype != torch.float32:
             if self.training:
                 mean, var = self._batch_stats(x)
             else:
@@ -236,6 +339,65 @@ class ResidualBlock(nn.Module):
         return F.relu(y + x)
 
 
+def _flax_kernel(conv: nn.Conv2d) -> torch.Tensor:
+    """A conv's weight (O, I, kh, kw) in flax's (kh, kw, I, O) layout, as
+    a differentiable view."""
+    return conv.weight.permute(2, 3, 1, 0)
+
+
+def _flax_up_kernel(up: nn.ConvTranspose2d) -> torch.Tensor:
+    """A 2x2 up-conv's weight (I, O, 2, 2) in the flax (2, 2, I, O) layout
+    that ``lax.conv_transpose`` applies (taps flipped; convert.py), as a
+    differentiable view."""
+    return up.weight.permute(2, 3, 0, 1).flip(0, 1)
+
+
+def poly_batch_norm(bn: BatchNorm, x4: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``bn`` over phase-major (N, h, w, 4C) input, per original channel
+    (the JAX package's ``_PolyBatchNorm``, ``nn/blocks.py:88-151``).
+
+    Train-mode statistics reduce over the phase axis too, so they equal the
+    standard-domain statistics (the phases partition the pixels), with
+    :class:`BatchNorm`'s rules: biased float32 statistics, float32 input
+    through ``F.batch_norm``'s arithmetic (:class:`_BatchNormF32`; the JAX
+    function normalizes with the fast variance), the fast variance moving
+    the running statistics with momentum 0.99, none moved under
+    :class:`frozen_batch_stats`, the global batch's inside
+    ``data_parallel``.  Otherwise scale and bias round to the compute
+    ``dtype`` before use, and the normalization runs in float32 and
+    rounds once to ``dtype``."""
+    c = x4.shape[-1] // 4
+    xf = x4.float()
+    if bn.training and dtype == torch.float32:
+        y, mean, fast = _BatchNormF32.apply(xf.reshape(*x4.shape[:3], 4, c), bn.weight, bn.bias, bn.eps,
+                                            (0, 1, 2, 3), collectives.data_group())
+        bn.fold_batch_stats(mean, fast)
+        return y.reshape(x4.shape)
+    if bn.training:
+        mean, var = _moments(xf.reshape(*x4.shape[:3], 4, c), (0, 1, 2, 3))
+        bn.fold_batch_stats(mean, var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.to(dtype).float()
+    y = (xf - tile4(mean)) * tile4(mul) + tile4(bn.bias.to(dtype).float())
+    return y.to(dtype)
+
+
+def poly_residual_block(block: "ResidualBlock", x4: torch.Tensor) -> torch.Tensor:
+    """``block`` computed in the space-to-depth phase domain (exact; the
+    JAX package's ``PolyResidualBlock``, ``nn/blocks.py:154-182``) from
+    the block's own parameters: phase-major (N, h, w, 4Cin) in,
+    (N, h, w, 4C) out, in the block's compute dtype, differentiable."""
+    dt = block.Conv_0.compute_dtype
+    x4 = x4.to(dt)
+    y = poly_conv3x3(x4, _flax_kernel(block.Conv_0).to(dt), block.Conv_0.bias)
+    y = F.relu(poly_batch_norm(block.BatchNorm_0, y, dt))
+    y = poly_conv3x3(y, _flax_kernel(block.Conv_1).to(dt), block.Conv_1.bias)
+    y = poly_batch_norm(block.BatchNorm_1, y, dt)
+    sc = poly_conv1x1(x4, _flax_kernel(block.Conv_2).to(dt), block.Conv_2.bias)
+    return F.relu(y + sc)
+
+
 class SymmetricConv2d(nn.Module):
     """Radially-symmetric single-channel conv: one weight per unique squared
     distance from the kernel centre, expanded through a static index map
@@ -310,7 +472,14 @@ class UNet(nn.Module):
     convolutions run in compute ``dtype``, and so does its output.  With
     ``remat`` each residual block recomputes its activations in the
     backward (:func:`remat`; the JAX package's per-block ``nn.remat``); the
-    parameters are the same."""
+    parameters are the same.
+
+    ``polyphase_level0`` computes level 0 (``enc_0``, the last up-conv,
+    ``dec_0`` and the head ``Conv_0``) in the space-to-depth phase domain
+    (``nn/polyphase.py``, exact math) from the same modules' parameters, so
+    ``state_dict`` keys and shapes do not change and checkpoints
+    interchange; as in the JAX package it applies with ``levels > 1`` and
+    even H and W, and the plain path runs otherwise."""
 
     def __init__(
         self,
@@ -320,12 +489,14 @@ class UNet(nn.Module):
         levels: int = 4,
         dtype: torch.dtype = torch.float32,
         remat: bool = False,
+        polyphase_level0: bool = False,
     ):
         super().__init__()
         f = base_features
         self.levels = levels
         self.dtype = dtype
         self.remat = remat
+        self.polyphase_level0 = polyphase_level0
         self.enc_0 = ResidualBlock(in_channels, f, True, dtype)
         for i in range(1, levels):
             setattr(self, f"enc_{i}", ResidualBlock(f * 2 ** (i - 1), f * 2**i, True, dtype))
@@ -346,14 +517,30 @@ class UNet(nn.Module):
         self.dec_0 = ResidualBlock(2 * f, f, True, dtype)
         self.Conv_0 = _conv(f, output_channels, 1, dtype)
 
-    def _block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+    def _block(self, name: str, x: torch.Tensor, poly: bool = False) -> torch.Tensor:
         block = getattr(self, name)
-        return remat(block, x, module=block) if self.remat else block(x)
+        fn = functools.partial(poly_residual_block, block) if poly else block
+        return remat(fn, x, module=block) if self.remat else fn(x)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def uses_polyphase(self, x: torch.Tensor) -> bool:
+        """Whether level 0 runs in the phase domain for input ``x``."""
+        return (self.polyphase_level0 and self.levels > 1
+                and x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0)
+
+    def encode_level0(self, x: torch.Tensor, poly: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``enc_0`` and its pool: (skip, pooled NCHW).  With ``poly`` the
+        block runs in the phase domain and the skip stays phase-major NHWC."""
+        if poly:
+            s0 = self._block("enc_0", space_to_depth(x.permute(0, 2, 3, 1)), poly=True)
+            return s0, poly_pool(s0).permute(0, 3, 1, 2).contiguous()
+        s0 = self._block("enc_0", x)
+        return s0, F.max_pool2d(s0, 2)
+
+    def inner(self, y: torch.Tensor) -> torch.Tensor:
+        """Levels 1 and up, the bottleneck and their decoders: the pooled
+        level-0 features -> the input of the last up-conv."""
         skips = []
-        y = x
-        for i in range(self.levels):
+        for i in range(1, self.levels):
             y = self._block(f"enc_{i}", y)
             skips.append(y)
             y = F.max_pool2d(y, 2)
@@ -361,12 +548,28 @@ class UNet(nn.Module):
         if self.levels > 1:
             y = self.ConvTranspose_0(y)
         for i in reversed(range(1, self.levels)):
-            y = self._block(f"dec_{i}", torch.cat([skips[i], y], dim=1))
+            y = self._block(f"dec_{i}", torch.cat([skips[i - 1], y], dim=1))
             if i > 1:
                 y = getattr(self, f"ConvTranspose_{self.levels - i}")(y)
-        y = getattr(self, f"ConvTranspose_{self.levels - 1}")(y)
-        y = self._block("dec_0", torch.cat([skips[0], y], dim=1))
+        return y
+
+    def decode_level0(self, skip: torch.Tensor, y: torch.Tensor, poly: bool) -> torch.Tensor:
+        """The last up-conv, ``dec_0`` and the head ``Conv_0`` from
+        :meth:`encode_level0`'s skip and :meth:`inner`'s output."""
+        up = getattr(self, f"ConvTranspose_{self.levels - 1}")
+        if poly:
+            dt = self.dtype
+            y = poly_upconv_gemm(y.permute(0, 2, 3, 1).to(dt), _flax_up_kernel(up).to(dt), up.bias)
+            y = self._block("dec_0", poly_concat(skip, y), poly=True)
+            y = poly_conv1x1(y.to(dt), _flax_kernel(self.Conv_0).to(dt), self.Conv_0.bias)
+            return torch.sigmoid(depth_to_space(y)).permute(0, 3, 1, 2)
+        y = self._block("dec_0", torch.cat([skip, up(y)], dim=1))
         return torch.sigmoid(self.Conv_0(y))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        poly = self.uses_polyphase(x)  # level 0 in the phase domain, NHWC, skip kept phase-major
+        skip, y = self.encode_level0(x, poly)
+        return self.decode_level0(skip, self.inner(y), poly)
 
 
 @torch.no_grad()

@@ -23,6 +23,20 @@ cached values (the memory lever at 1080p and 4K).  ``sequential=True`` in
 the distances with one padded plane set in flight, on the composable branch
 (K3 per distance on a CUDA tensor), as the JAX package's ``lax.map`` does.
 Complex tensors are complex64; the public layout is NCHW.
+
+Two multi-device forms (``parallel/``), as in the JAX package.  A plan
+bound to a mesh (:meth:`PropagatorPlan.with_spatial`) keeps the padded
+planes row-sharded: :func:`pad` hands each rank its rows of the padded
+grid, :func:`_fft2`/:func:`_ifft2` are the pencil FFT on those rows
+(``parallel/fft.py``), the transfer functions and masks are cut to the
+same rows, and :func:`crop` joins the rows on every rank once the columns
+are cropped.  So under a binding a padded spectrum a primitive returns
+(:func:`propagate_poh2freq_forward`, :func:`filter_ap2filtered_freq`) is
+this rank's rows, and the primitives that take one expect that.  The
+fused branch never runs there: no K1, K2 or K3.  A distance-sharded plan (``parallel.shard_distance_stack``) has
+each rank compute the planes of its own distances in
+:func:`propagate_batch_multi`, :func:`freq2ap_all_distances` and
+:func:`freq2ap_random_distances`, the results joined on every rank.
 """
 
 from __future__ import annotations
@@ -48,8 +62,13 @@ class PropagatorPlan:
       radial_grid: (Rp, Cp) float32 fftfreq radius grid of the sigmoid
                  (differentiable) low-pass (reference :315-319, :426-436).
       H:         (D, C, Rp, Cp) complex64 cached transfer functions, or None
-                 without a distance stack or with ``cache_h=False``.
+                 without a distance stack or with ``cache_h=False``; with
+                 ``distance_shard``, this rank's D / p of them.
       distances: (D,) float32 fixed distance stack, or None.
+      spatial:   (mesh, axis name) binding the row-sharded pencil FFT
+                 (:meth:`with_spatial`), or None.
+      distance_shard: (mesh, axis name) splitting the distance stack over
+                 the ranks (``parallel.shard_distance_stack``), or None.
     """
 
     w_grid: torch.Tensor
@@ -65,6 +84,8 @@ class PropagatorPlan:
     pixel_pitch: float
     wavelengths: Tuple[float, ...]
     filter_radius_coefficient: float
+    spatial: Optional[tuple] = None
+    distance_shard: Optional[tuple] = None
 
     @property
     def padded_rows(self) -> int:
@@ -77,6 +98,18 @@ class PropagatorPlan:
     @property
     def num_distances(self) -> int:
         return 0 if self.distances is None else int(self.distances.shape[0])
+
+    def replace(self, **kw) -> "PropagatorPlan":
+        return dataclasses.replace(self, **kw)
+
+    def with_spatial(self, mesh, axis_name: Optional[str] = None) -> "PropagatorPlan":
+        """Bind the row-sharded padded planes and pencil FFT over ``mesh``'s
+        ``axis_name`` (its first axis by default) to this plan; every rank
+        of the axis then runs the plan's primitives together, and both
+        padded dims must divide by the axis size.  ``mesh=None`` unbinds."""
+        if mesh is None:
+            return self.replace(spatial=None)
+        return self.replace(spatial=(mesh, axis_name or mesh.axis_names[0]))
 
 
 def make_plan(
@@ -168,10 +201,11 @@ def _transfer_function(w_grid: torch.Tensor, distances: torch.Tensor) -> torch.T
 
 def transfer_function(plan: PropagatorPlan, distances: torch.Tensor) -> torch.Tensor:
     """The (D, C, Rp, Cp) transfer-function stack for any ``distances`` (D,),
-    computed from the plan's w-grid."""
+    computed from the plan's w-grid (this rank's rows under a spatial
+    binding)."""
     distances = torch.atleast_1d(torch.as_tensor(distances, dtype=torch.float32,
                                                  device=plan.w_grid.device))
-    return _transfer_function(plan.w_grid, distances)
+    return _transfer_function(_w(plan), distances)
 
 
 def _need_distances(plan: PropagatorPlan) -> None:
@@ -184,30 +218,45 @@ def _need_distances(plan: PropagatorPlan) -> None:
 
 def _h_stack(plan: PropagatorPlan) -> torch.Tensor:
     """The plan's (D, C, Rp, Cp) transfer stack: cached, or computed from
-    the w-grid when the plan was built with ``cache_h=False``."""
-    if plan.H is not None:
-        return plan.H
+    the w-grid when the plan was built with ``cache_h=False`` or holds
+    only its rank's share (``distance_shard``)."""
+    if plan.H is not None and plan.distance_shard is None:
+        return _rows(plan, plan.H)
     _need_distances(plan)
-    return _transfer_function(plan.w_grid, plan.distances)
+    return _transfer_function(_w(plan), plan.distances)
 
 
 def _fixed_h(plan: PropagatorPlan) -> torch.Tensor:
     """The (C, Rp, Cp) transfer function of the plan's first distance."""
-    if plan.H is not None:
-        return plan.H[0]
+    if plan.H is not None and plan.distance_shard is None:
+        return _rows(plan, plan.H[0])
     _need_distances(plan)
-    return _transfer_function(plan.w_grid, plan.distances[:1])[0]
+    return _transfer_function(_w(plan), plan.distances[:1])[0]
 
 
 def pad(plan: PropagatorPlan, x: torch.Tensor) -> torch.Tensor:
-    """Zero-pad the last two axes to the padded sampling grid."""
-    if plan.pad_rows == 0 and plan.pad_cols == 0:
+    """Zero-pad the last two axes to the padded sampling grid; under a
+    spatial binding, this rank's rows of it (the gradient joins the
+    ranks' rows again)."""
+    if plan.pad_rows or plan.pad_cols:
+        x = F.pad(x, (plan.pad_cols, plan.pad_cols, plan.pad_rows, plan.pad_rows))
+    if plan.spatial is None:
         return x
-    return F.pad(x, (plan.pad_cols, plan.pad_cols, plan.pad_rows, plan.pad_rows))
+    from ..parallel import collectives
+
+    return collectives.scatter(x, -2, _spatial_axis(plan)[0])
 
 
 def crop(plan: PropagatorPlan, x: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`pad`: the central (rows, cols) window."""
+    """Inverse of :func:`pad`: the central (rows, cols) window.  Under a
+    spatial binding ``x`` is this rank's rows: the columns are cropped
+    first, then the rows join on every rank."""
+    if plan.spatial is not None:
+        from ..parallel import collectives
+
+        x = collectives.gather(x[..., plan.pad_cols : plan.pad_cols + plan.cols], -2,
+                               _spatial_axis(plan)[0])
+        return x[..., plan.pad_rows : plan.pad_rows + plan.rows, :]
     if plan.pad_rows == 0 and plan.pad_cols == 0:
         return x
     return x[
@@ -229,13 +278,65 @@ def _angle(x: torch.Tensor) -> torch.Tensor:
     return torch.atan2(x.imag, x.real)
 
 
-def _fft2(x: torch.Tensor) -> torch.Tensor:
+# A spatial binding (PropagatorPlan.with_spatial): the padded planes' rows
+# are split over the mesh axis from pad() to crop(), and every operand a
+# primitive multiplies them by is cut to the same rows.
+
+
+def _spatial_axis(plan: PropagatorPlan) -> Tuple[object, int, int]:
+    """(group, size, this rank's index) of a spatially bound plan's axis."""
+    mesh, axis = plan.spatial
+    group, size, index = mesh.axis(axis)
+    if plan.padded_rows % size or plan.padded_cols % size:
+        raise ValueError(f"padded grid {plan.padded_rows} x {plan.padded_cols} does not split "
+                         f"into {size} ranks")
+    return group, size, index
+
+
+def _rows(plan: PropagatorPlan, t: torch.Tensor) -> torch.Tensor:
+    """``t``'s rows (axis -2) of the padded grid that this rank holds under
+    a spatial binding; ``t`` itself without one."""
+    if plan.spatial is None:
+        return t
+    _, size, index = _spatial_axis(plan)
+    per = plan.padded_rows // size
+    return t[..., index * per : (index + 1) * per, :]
+
+
+def _w(plan: PropagatorPlan) -> torch.Tensor:
+    return _rows(plan, plan.w_grid)
+
+
+def _mask(plan: PropagatorPlan) -> torch.Tensor:
+    return _rows(plan, plan.mask)
+
+
+def _spectrum_mean(plan: PropagatorPlan, x: torch.Tensor) -> torch.Tensor:
+    """The mean of a padded-grid tensor over all its rows (the ranks' row
+    blocks are equal, so the mean of their means)."""
+    if plan.spatial is None:
+        return torch.mean(x)
+    from ..parallel import collectives
+
+    group, size, _ = _spatial_axis(plan)
+    return collectives.reduce_from_ranks(torch.mean(x), group) / size
+
+
+def _fft2(x: torch.Tensor, plan: Optional[PropagatorPlan] = None) -> torch.Tensor:
+    if plan is not None and plan.spatial is not None:
+        from ..parallel import fft as pfft
+
+        return pfft.pencil_fft2(x, _spatial_axis(plan)[0])
     from .cuda import fft
 
     return fft.fft2(x)
 
 
-def _ifft2(x: torch.Tensor) -> torch.Tensor:
+def _ifft2(x: torch.Tensor, plan: Optional[PropagatorPlan] = None) -> torch.Tensor:
+    if plan is not None and plan.spatial is not None:
+        from ..parallel import fft as pfft
+
+        return pfft.pencil_fft2(x, _spatial_axis(plan)[0], inverse=True)
     from .cuda import fft
 
     return fft.ifft2(x)
@@ -247,6 +348,8 @@ def _ifft2(x: torch.Tensor) -> torch.Tensor:
 
 
 def _fused_ok(plan: PropagatorPlan) -> bool:
+    if plan.spatial is not None:
+        return False  # the pencil FFT composes the spatial path instead
     from .cuda import spectral
 
     return spectral.supported(plan.padded_rows, plan.padded_cols)
@@ -354,9 +457,9 @@ def propagate(
         if d in (1, b):
             z = distances.expand(b).contiguous()
             return _fused_apply(plan, g, z, per_plane=True)[:, 0].abs()
-    h = _h_stack(plan) if use_plan_stack else _transfer_function(plan.w_grid, distances)
-    g0 = _fft2(pad(plan, g))
-    return crop(plan, _ifft2(g0 * (h * plan.mask))).abs()
+    h = _h_stack(plan) if use_plan_stack else _transfer_function(_w(plan), distances)
+    g0 = _fft2(pad(plan, g), plan)
+    return crop(plan, _ifft2(g0 * (h * _mask(plan)), plan)).abs()
 
 
 def propagate_p2i(
@@ -387,7 +490,7 @@ def propagate_ap2ap(
     h = _h_stack(plan) if distances is None else transfer_function(plan, distances)
     if backward:
         h = torch.conj(h)
-    gz = crop(plan, _ifft2(_fft2(pad(plan, g)) * h))
+    gz = crop(plan, _ifft2(_fft2(pad(plan, g), plan) * h, plan))
     return torch.cat([gz.abs(), _angle(gz)], dim=1)
 
 
@@ -407,15 +510,15 @@ def propagate_ap2c_backward(
             plan, g, plan.distances[:1], conj_h=True, use_mask=False
         )
         return out[:, 0]
-    gz = _fft2(pad(plan, g))
-    return crop(plan, _ifft2(gz * torch.conj(_fixed_h(plan))))
+    gz = _fft2(pad(plan, g), plan)
+    return crop(plan, _ifft2(gz * torch.conj(_fixed_h(plan)), plan))
 
 
 def propagate_poh2freq_forward(plan: PropagatorPlan, poh: torch.Tensor) -> torch.Tensor:
     """Phase-only hologram -> filtered image-plane spectrum, the full padded
     (B, C, Rp, Cp) complex64 (reference :386-392)."""
-    g0 = _fft2(pad(plan, field(torch.ones_like(poh), poh)))
-    return g0 * (_fixed_h(plan) * plan.mask)
+    g0 = _fft2(pad(plan, field(torch.ones_like(poh), poh)), plan)
+    return g0 * (_fixed_h(plan) * _mask(plan))
 
 
 def propagate_poh2ap_forward(
@@ -426,14 +529,14 @@ def propagate_poh2ap_forward(
     if _fused_ok(plan) and plan.distances is not None:
         gz = _fused_apply(plan, g, plan.distances[:1])[:, 0]
         return gz.abs(), _angle(gz)
-    g0 = _fft2(pad(plan, g))
-    gz = crop(plan, _ifft2(g0 * (_fixed_h(plan) * plan.mask)))
+    g0 = _fft2(pad(plan, g), plan)
+    gz = crop(plan, _ifft2(g0 * (_fixed_h(plan) * _mask(plan)), plan))
     return gz.abs(), _angle(gz)
 
 
 def _sigmoid_mask(plan: PropagatorPlan, filter_radius_coefficient) -> torch.Tensor:
     radius = min(plan.padded_rows, plan.padded_cols) * filter_radius_coefficient
-    return masks_lib.differentiable_circular_mask(plan.radial_grid, radius)
+    return masks_lib.differentiable_circular_mask(_rows(plan, plan.radial_grid), radius)
 
 
 def propagate_poh2ap_forward_with_spectrum_loss(
@@ -446,10 +549,10 @@ def propagate_poh2ap_forward_with_spectrum_loss(
     the full padded spectrum, the energy the POH puts outside the pass
     band.  Runs on :func:`_fft2`/:func:`_ifft2` (K3 on a CUDA tensor, its
     adjoint in the backward)."""
-    g0 = _fft2(pad(plan, field(torch.ones_like(poh), poh)))
+    g0 = _fft2(pad(plan, field(torch.ones_like(poh), poh)), plan)
     gz_f = g0 * (_fixed_h(plan) * _sigmoid_mask(plan, filter_radius_coefficient))
-    spectrum_loss = torch.mean(g0.abs() - gz_f.abs())
-    gz = crop(plan, _ifft2(gz_f))
+    spectrum_loss = _spectrum_mean(plan, g0.abs() - gz_f.abs())
+    gz = crop(plan, _ifft2(gz_f, plan))
     return gz.abs(), _angle(gz), spectrum_loss
 
 
@@ -461,7 +564,7 @@ def differentiable_lowpass_filter(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Low-pass an amp/phase pair through the sigmoid-edged mask, without
     propagating (reference AP2POH.py:75-84); K3 on a CUDA tensor."""
-    g = _ifft2(_fft2(pad(plan, field(amp, phs))) * _sigmoid_mask(plan, filter_radius_coefficient))
+    g = _ifft2(_fft2(pad(plan, field(amp, phs)), plan) * _sigmoid_mask(plan, filter_radius_coefficient), plan)
     g = crop(plan, g)
     return g.abs(), _angle(g)
 
@@ -469,6 +572,37 @@ def differentiable_lowpass_filter(
 # ---------------------------------------------------------------------------
 # Multi-distance focal-stack primitives (reference subclass :469-552)
 # ---------------------------------------------------------------------------
+#
+# On a distance-sharded plan (parallel.shard_distance_stack) each rank
+# computes the planes of its own distances (the random draw: its share of
+# the sample pairs) from the replicated spectrum, and the planes join on
+# every rank (parallel/collectives.gather): the results are the unsharded
+# ones, and the gradient of the replicated input sums every rank's share.
+
+
+def _shard(plan: PropagatorPlan):
+    """(group, size, index) of a distance-sharded plan's mesh axis."""
+    mesh, axis = plan.distance_shard
+    return mesh.axis(axis)
+
+
+def _local_plan(plan: PropagatorPlan) -> PropagatorPlan:
+    """A distance-sharded plan cut to this rank's distances (its H is
+    already this rank's share)."""
+    _, size, index = _shard(plan)
+    per = plan.num_distances // size
+    return plan.replace(distances=plan.distances[index * per:(index + 1) * per], distance_shard=None)
+
+
+def _join_distances(planes: torch.Tensor, b: int, group) -> torch.Tensor:
+    """(..., B * D/p, C, rows, cols) sample-major planes of every rank ->
+    (..., B * D, C, rows, cols), row ``b*D + d`` sample b at distance d."""
+    from ..parallel import collectives
+
+    lead = planes.shape[:-4]
+    planes = planes.reshape(*lead, b, -1, *planes.shape[-3:])
+    planes = collectives.gather(planes, len(lead) + 1, group)
+    return planes.reshape(*lead, -1, *planes.shape[-3:])
 
 
 
@@ -478,8 +612,8 @@ def _sequential_planes(plan: PropagatorPlan, g0: torch.Tensor, distances: torch.
     (fn, out) pairs with ``out`` a (B, D, C, rows, cols) tensor, writes
     ``fn(plane)`` into ``out[:, d]``."""
     for d in range(int(distances.shape[0])):
-        h = _transfer_function(plan.w_grid, distances[d : d + 1])[0]
-        plane = crop(plan, _ifft2(g0 * (h * plan.mask)))
+        h = _transfer_function(_w(plan), distances[d : d + 1])[0]
+        plane = crop(plan, _ifft2(g0 * (h * _mask(plan)), plan))
         for fn, out in outs:
             out[:, d] = fn(plane)
 
@@ -498,6 +632,13 @@ def propagate_batch_multi(
     building the (B, D, C, Rp, Cp) spectrum stack: peak memory is one padded
     plane set whatever D (the single-card 1080p/4K mode)."""
     use_plan_stack = distances is None
+    if use_plan_stack and plan.distance_shard is not None:
+        from ..parallel import collectives
+
+        group = _shard(plan)[0]
+        amp, phs = collectives.copy_to_ranks(amp, group), collectives.copy_to_ranks(phs, group)
+        out = propagate_batch_multi(_local_plan(plan), amp, phs, sequential=sequential)
+        return _join_distances(out, amp.shape[0], group)
     if use_plan_stack:
         if plan.distances is None:
             raise ValueError("plan has no distance stack and none was passed")
@@ -507,16 +648,16 @@ def propagate_batch_multi(
     if _fused_ok(plan) and not sequential:
         out = _fused_apply(plan, g, distances).abs()
         return out.reshape(out.shape[0] * out.shape[1], *out.shape[2:])
-    g0 = _fft2(pad(plan, g))  # (B, C, Rp, Cp)
+    g0 = _fft2(pad(plan, g), plan)  # (B, C, Rp, Cp)
     if sequential:
         b, d = g0.shape[0], int(distances.shape[0])
         out = g0.real.new_empty(b, d, g0.shape[1], plan.rows, plan.cols)
         _sequential_planes(plan, g0, distances, [(torch.abs, out)])
         return out.reshape(b * d, *out.shape[2:])
-    h = _h_stack(plan) if use_plan_stack else _transfer_function(plan.w_grid, distances)
-    gz = g0[:, None] * (h * plan.mask)[None]  # (B, D, C, Rp, Cp)
+    h = _h_stack(plan) if use_plan_stack else _transfer_function(_w(plan), distances)
+    gz = g0[:, None] * (h * _mask(plan))[None]  # (B, D, C, Rp, Cp)
     gz = gz.reshape(gz.shape[0] * gz.shape[1], *gz.shape[2:])
-    return crop(plan, _ifft2(gz)).abs()
+    return crop(plan, _ifft2(gz, plan)).abs()
 
 
 def filter_ap2filtered_freq(
@@ -525,8 +666,8 @@ def filter_ap2filtered_freq(
     """Target amp/phase -> aperture-filtered padded spectrum (reference
     :548-552).  ``phs`` is the dataset's normalized [0, 1] phase, scaled by
     2*pi here like the reference."""
-    g0 = _fft2(pad(plan, field(amp, (2.0 * np.pi) * phs)))
-    return g0 * plan.mask
+    g0 = _fft2(pad(plan, field(amp, (2.0 * np.pi) * phs)), plan)
+    return g0 * _mask(plan)
 
 
 def freq2ap_all_distances(
@@ -537,6 +678,14 @@ def freq2ap_all_distances(
     (reference :524-531).  ``sequential=True`` propagates one distance at a
     time, one padded plane set in flight (the single-card 1080p/4K
     evaluation mode, as :func:`propagate_batch_multi`)."""
+    if plan.distance_shard is not None:
+        from ..parallel import collectives
+
+        group = _shard(plan)[0]
+        amp, phs = freq2ap_all_distances(_local_plan(plan), collectives.copy_to_ranks(g0, group),
+                                         sequential)
+        both = _join_distances(torch.stack([amp, phs]), g0.shape[0], group)
+        return both[0], both[1]
     if sequential:
         _need_distances(plan)
         b, d = g0.shape[0], plan.num_distances
@@ -548,8 +697,8 @@ def freq2ap_all_distances(
         out = _fused_apply(plan, g0, plan.distances, from_spectrum=True)
         gz = out.reshape(out.shape[0] * out.shape[1], *out.shape[2:])
         return gz.abs(), _angle(gz)
-    gz = g0[:, None] * (_h_stack(plan) * plan.mask)[None]  # (B, D, C, Rp, Cp)
-    gz = crop(plan, _ifft2(gz.reshape(gz.shape[0] * gz.shape[1], *gz.shape[2:])))
+    gz = g0[:, None] * (_h_stack(plan) * _mask(plan))[None]  # (B, D, C, Rp, Cp)
+    gz = crop(plan, _ifft2(gz.reshape(gz.shape[0] * gz.shape[1], *gz.shape[2:]), plan))
     return gz.abs(), _angle(gz)
 
 
@@ -566,9 +715,9 @@ def freq2amp_at(
                                                  device=plan.w_grid.device))
     if _fused_ok(plan):
         return _fused_apply(plan, g0, distances, from_spectrum=True).abs()
-    gz = g0[:, None] * (transfer_function(plan, distances) * plan.mask)[None]
+    gz = g0[:, None] * (transfer_function(plan, distances) * _mask(plan))[None]
     b, d = gz.shape[0], gz.shape[1]
-    gz = crop(plan, _ifft2(gz.reshape(b * d, *gz.shape[2:])))
+    gz = crop(plan, _ifft2(gz.reshape(b * d, *gz.shape[2:]), plan))
     return gz.abs().reshape(b, d, *gz.shape[1:])
 
 
@@ -602,17 +751,49 @@ def freq2ap_random_distances(
     if tuple(idx.shape) != (b,):
         raise ValueError(f"need one distance index per sample pair, got {tuple(idx.shape)}")
     idx = idx.to(plan.distances.device)
+    if plan.distance_shard is not None:
+        return _random_distances_sharded(plan, g0, idx)
     if _fused_ok(plan):
         z = plan.distances[idx]
         gz = _fused_apply(plan, g0, torch.cat([z, z]), from_spectrum=True, per_plane=True)[:, 0]
         return gz.abs(), _angle(gz)
     if plan.H is not None:
-        h = (plan.H * plan.mask)[idx]  # (B, C, Rp, Cp)
+        h = _rows(plan, plan.H)[idx] * _mask(plan)  # (B, C, Rp, Cp)
     else:
         # on the fly: only the B drawn distances are built
-        h = _transfer_function(plan.w_grid, plan.distances[idx]) * plan.mask
+        h = _transfer_function(_w(plan), plan.distances[idx]) * _mask(plan)
     gz = g0.reshape(2, b, *g0.shape[1:]) * h[None]
-    gz = crop(plan, _ifft2(gz.reshape(2 * b, *g0.shape[1:])))
+    gz = crop(plan, _ifft2(gz.reshape(2 * b, *g0.shape[1:]), plan))
+    return gz.abs(), _angle(gz)
+
+
+def _random_distances_sharded(
+    plan: PropagatorPlan, g0: torch.Tensor, idx: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`freq2ap_random_distances` on a distance-sharded plan: the 2B
+    (sample, distance) planes split evenly over the ranks (the last
+    padded by repeating it), each rank's with H for its planes' distances,
+    joined on every rank."""
+    from ..parallel import collectives
+
+    group, size, index = _shard(plan)
+    n = g0.shape[0]
+    z = plan.distances[idx]
+    z = torch.cat([z, z])
+    per = -(-n // size)
+    pad_n = per * size - n
+    if pad_n:
+        g0 = torch.cat([g0, g0[-1:].expand(pad_n, *g0.shape[1:])])
+        z = torch.cat([z, z[-1:].expand(pad_n)])
+    g_local = collectives.scatter(g0, 0, group)
+    z_local = z[index * per:(index + 1) * per]
+    whole = plan.replace(H=None, distance_shard=None)
+    if _fused_ok(whole):
+        gz = _fused_apply(whole, g_local, z_local, from_spectrum=True, per_plane=True)[:, 0]
+    else:
+        h = _transfer_function(whole.w_grid, z_local) * whole.mask
+        gz = crop(whole, _ifft2(g_local * h, whole))
+    gz = collectives.gather(gz, 0, group)[:n]
     return gz.abs(), _angle(gz)
 
 
@@ -668,16 +849,16 @@ def hat_target_random_distances(
         raise ValueError(f"need one distance index per sample, got {tuple(idx.shape)}")
     z = multi_plan.distances[idx.to(multi_plan.distances.device)]  # (B,)
     z_hat = gen_plan.distances[0] + z
-    hat_mask = gen_plan.mask * multi_plan.mask
-    tgt_mask = multi_plan.mask * multi_plan.mask
+    hat_mask = _rows(multi_plan, gen_plan.mask * multi_plan.mask)
+    tgt_mask = _mask(multi_plan) * _mask(multi_plan)
     g_hat = field(torch.ones_like(poh), poh)
     g_tgt = field(target_amp, (2.0 * np.pi) * target_phs)
     if _fused_ok(multi_plan):
         hat = _fused_apply(multi_plan, g_hat, z_hat, per_plane=True, mask_override=hat_mask)[:, 0]
         tgt = _fused_apply(multi_plan, g_tgt, z, per_plane=True, mask_override=tgt_mask)[:, 0]
     else:
-        h_hat = _transfer_function(multi_plan.w_grid, z_hat) * hat_mask  # (B, C, Rp, Cp)
-        h_tgt = _transfer_function(multi_plan.w_grid, z) * tgt_mask
-        hat = crop(multi_plan, _ifft2(_fft2(pad(multi_plan, g_hat)) * h_hat))
-        tgt = crop(multi_plan, _ifft2(_fft2(pad(multi_plan, g_tgt)) * h_tgt))
+        h_hat = _transfer_function(_w(multi_plan), z_hat) * hat_mask  # (B, C, Rp, Cp)
+        h_tgt = _transfer_function(_w(multi_plan), z) * tgt_mask
+        hat = crop(multi_plan, _ifft2(_fft2(pad(multi_plan, g_hat), multi_plan) * h_hat, multi_plan))
+        tgt = crop(multi_plan, _ifft2(_fft2(pad(multi_plan, g_tgt), multi_plan) * h_tgt, multi_plan))
     return hat.abs(), tgt.abs(), _angle(hat), _angle(tgt)

@@ -35,14 +35,34 @@ and the reconstruction), every critic apply, the penalty's critic inside
 its double backward, and VGG19.  Recomputes leave BatchNorm running
 statistics alone, so the step's values are the plain step's: on the CPU,
 bit for bit.  A recompute runs K1 and K3 (and, in the penalty's double
-backward, the critic) a second time.  Spatial meshes are not ported.
+backward, the critic) a second time.
+
+Two multi-device modes (``parallel/``), each rank a process:
+
+* ``mesh`` (data-parallel, the JAX step under a batch-sharded mesh): each
+  rank takes its rows of the global batch.  The draws are made for the
+  global batch from the same generator on every rank, and each rank takes
+  its share (distances are drawn without replacement over the batch).
+  BatchNorm statistics, the focal weights' maximum and the TV term's
+  means are global (``collectives.data_parallel``), gradients are
+  averaged over the ranks before each Adam step (G's, and D's at every
+  critic iteration), and the metrics are global means (PSNR and SSIM over
+  the gathered batch).  No DDP wrapper: the penalty's ``create_graph``
+  double backward does not mix with its reducer.
+* ``spatial_mesh``: the step binds it to both plans
+  (``PropagatorPlan.with_spatial``), so the padded planes are row-sharded
+  from each pad to each crop and their FFTs are the pencil FFT;
+  parameters, the critic with its double backward and the losses run
+  replicated on every rank, on the whole batch.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import contextlib
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import LossConfig
 from ..losses import PHASE_LOSSES, mse, perceptual_loss, psnr, ssim, total_variation_loss
@@ -50,6 +70,7 @@ from ..models.generator import Generator
 from ..nn.blocks import frozen_batch_stats, full_f32_convs, remat as remat_region
 from ..ops import asm
 from ..ops.asm import PropagatorPlan
+from ..parallel import collectives
 from .state import TrainState
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (RGBD, amp, phs)
@@ -181,10 +202,12 @@ def critic_updates(
     discriminator_lambda: float,
     critic_batching: str = "pair",
     remat: bool = False,
+    group=None,
 ) -> torch.Tensor:
     """Step 5: ``len(alphas)`` critic updates on detached reconstructions,
-    each batched as ``critic_batching`` says (:func:`_critic_loss`);
-    returns the mean critic loss (0 when there are none)."""
+    each batched as ``critic_batching`` says (:func:`_critic_loss`), the
+    gradients averaged over ``group``'s ranks when given; returns the mean
+    critic loss (0 when there are none)."""
     critic = state.discriminator
     params = [p for p in critic.parameters() if p.requires_grad]
     losses = []
@@ -193,6 +216,7 @@ def critic_updates(
                             critic_batching, remat)
         state.opt_D.zero_grad(set_to_none=True)
         loss.backward(inputs=params)
+        mean_gradients(params, group)
         state.opt_D.step()
         losses.append(loss.detach())
     if not losses:
@@ -235,14 +259,33 @@ def _g_loss_terms(
     return loss, terms
 
 
+@torch.no_grad()
+def mean_gradients(params, group) -> None:
+    """Average the ``.grad`` of ``params`` over ``group``'s ranks, in one
+    all-reduce (nothing when ``group`` is None)."""
+    if group is None:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 @full_f32_convs()
 def generator_update(
-    state: TrainState, loss_cfg: LossConfig, recon: Recon, remat: bool = False
+    state: TrainState, loss_cfg: LossConfig, recon: Recon, remat: bool = False, group=None
 ) -> Dict[str, torch.Tensor]:
     """Step 6: the generator loss against the current critic (train mode,
     batch statistics, no running-stat update), its backward through the
-    reconstruction's graph (recomputing the remat regions), Adam on G.
-    Returns the loss terms, detached."""
+    reconstruction's graph (recomputing the remat regions), the gradients
+    averaged over ``group``'s ranks when given, Adam on G.  Returns the
+    loss terms, detached."""
     hat_amps, target_amps, hat_phs, target_phs = recon
     with frozen_batch_stats(state.discriminator):
         loss_from_d = -_critic_apply(state.discriminator, remat)(hat_amps).mean()
@@ -252,6 +295,7 @@ def generator_update(
     params = [p for p in state.generator.parameters() if p.requires_grad]
     state.opt_G.zero_grad(set_to_none=True)
     loss.backward(inputs=params)
+    mean_gradients(params, group)
     state.opt_G.step()
     return {k: v.detach() for k, v in terms.items()}
 
@@ -260,10 +304,61 @@ def draw_step_randoms(
     state: TrainState, multi_plan: PropagatorPlan, batch_size: int, ratio: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The step's distance indices (B,) and GP alphas (ratio, B, 1, 1, 1),
-    drawn on the CPU from ``state.rng``."""
+    drawn on the CPU from ``state.rng`` (under a data mesh, for the global
+    batch)."""
     idx = asm.draw_distance_indices(multi_plan, batch_size, state.rng)
     alphas = torch.rand((ratio, batch_size, 1, 1, 1), generator=state.rng)
     return idx, alphas
+
+
+class _DataMesh:
+    """The data-parallel side of a step: the group, this rank's share of the
+    global batch's draws, and the global metrics."""
+
+    def __init__(self, mesh, axis_name: str = "data"):
+        if mesh.axis_names != (axis_name,):
+            raise ValueError(f"a data-parallel step takes a 1-D {axis_name!r} mesh (parallel.make_mesh), "
+                             f"got axes {mesh.axis_names}")
+        self.group, self.size, self.index = mesh.axis(axis_name)
+
+    def rows(self, b: int) -> slice:
+        return slice(self.index * b, (self.index + 1) * b)
+
+    def region(self):
+        return collectives.data_parallel(self.group)
+
+    @torch.no_grad()
+    def metrics(self, terms: Dict[str, torch.Tensor], hat: torch.Tensor, target: torch.Tensor):
+        """The terms' means over the ranks, and PSNR and SSIM of the
+        gathered global batch."""
+        keys = sorted(terms)
+        vals = torch.stack([terms[k].float().reshape(()) for k in keys])
+        dist.all_reduce(vals, group=self.group)
+        out = dict(zip(keys, (vals / self.size).unbind()))
+        hat = collectives.gather_batch(hat, self.group)
+        target = collectives.gather_batch(target, self.group)
+        out["PSNR"], out["SSIM"] = psnr(hat, target), ssim(hat, target)
+        return out
+
+
+def _region(dm: Optional[_DataMesh]):
+    """The data-parallel region a step runs in (none outside a mesh)."""
+    return dm.region() if dm is not None else contextlib.nullcontext()
+
+
+def _bind(spatial_mesh, *plans):
+    """``plans`` bound to ``spatial_mesh`` (unchanged without one)."""
+    if spatial_mesh is None:
+        return plans
+    return tuple(p.with_spatial(spatial_mesh) for p in plans)
+
+
+def _metrics(dm: Optional[_DataMesh], terms, hat, target):
+    if dm is not None:
+        return dm.metrics(terms, hat, target)
+    out = dict(terms)
+    out["PSNR"], out["SSIM"] = psnr(hat, target), ssim(hat, target)
+    return out
 
 
 def build_train_step(
@@ -274,6 +369,8 @@ def build_train_step(
     critic_batching: str = "pair",
     two_h_hat: bool = False,
     remat: bool = False,
+    mesh=None,
+    spatial_mesh=None,
 ) -> Callable:
     """Build ``train_step(state, batch, gen_plan, multi_plan, idx=None,
     alphas=None) -> (state, metrics)``, which updates ``state`` in place.
@@ -285,40 +382,53 @@ def build_train_step(
     docstring).  ``idx`` (B,) and
     ``alphas`` (ratio, B, 1, 1, 1) override the draws from ``state.rng``.
     ``metrics`` holds 0-dim tensors on the batch's device.
+
+    ``mesh`` (a ``parallel.Mesh`` with a ``data`` axis) makes the step
+    data-parallel: ``batch`` is this rank's rows, ``idx`` and ``alphas``
+    (drawn or passed) are the global batch's, and the metrics are global.
+    ``spatial_mesh`` binds the row-sharded planes and pencil FFT to both
+    plans for the step (module docstring).
     """
     if critic_batching not in CRITIC_BATCHINGS:
         raise ValueError(f"unknown critic_batching {critic_batching!r}")
     ratio = discriminator_train_ratio if use_gan else 0
+    dm = _DataMesh(mesh) if mesh is not None else None
+    group = dm.group if dm is not None else None
 
     def train_step(state: TrainState, batch: Batch, gen_plan, multi_plan, idx=None, alphas=None):
         b = batch[0].shape[0]
-        drawn_idx, drawn_alphas = draw_step_randoms(state, multi_plan, b, ratio)
+        drawn_idx, drawn_alphas = draw_step_randoms(state, multi_plan, b * (dm.size if dm else 1),
+                                                    ratio)
         idx = drawn_idx if idx is None else idx
         alphas = drawn_alphas if alphas is None else alphas
+        if dm is not None:
+            idx, alphas = idx[dm.rows(b)], alphas[:, dm.rows(b)]
         state.generator.train()
         state.discriminator.train()
-        recon = reconstruct(state.generator, gen_plan, multi_plan, batch, idx, two_h=two_h_hat,
-                            remat=remat)
-        hat_d, target_d = recon[0].detach(), recon[1]
-        d_loss = critic_updates(
-            state, target_d, hat_d, alphas.to(hat_d.device), discriminator_lambda, critic_batching,
-            remat,
-        )
-        metrics = generator_update(state, loss_cfg, recon, remat)
-        with torch.no_grad():
-            metrics["D_loss"] = d_loss
-            metrics["PSNR"] = psnr(hat_d, target_d)
-            metrics["SSIM"] = ssim(hat_d, target_d)
+        gen_plan, multi_plan = _bind(spatial_mesh, gen_plan, multi_plan)
+        with _region(dm):
+            recon = reconstruct(state.generator, gen_plan, multi_plan, batch, idx, two_h=two_h_hat,
+                                remat=remat)
+            hat_d, target_d = recon[0].detach(), recon[1]
+            d_loss = critic_updates(
+                state, target_d, hat_d, alphas.to(hat_d.device), discriminator_lambda, critic_batching,
+                remat, group,
+            )
+            terms = generator_update(state, loss_cfg, recon, remat, group)
+            terms["D_loss"] = d_loss
+            metrics = _metrics(dm, terms, hat_d, target_d)
         state.step += 1
         return state, metrics
 
     return train_step
 
 
-def build_eval_step(loss_cfg: LossConfig) -> Callable:
+def build_eval_step(loss_cfg: LossConfig, mesh=None, spatial_mesh=None) -> Callable:
     """Validation step over ALL cached distances (reference
     _validate_generator, watermelon.py:479-552): eval mode (the train step
-    sets train mode again), no autograd, the critic loss fixed at 0."""
+    sets train mode again), no autograd, the critic loss fixed at 0.
+    ``mesh`` and ``spatial_mesh`` as for :func:`build_train_step`."""
+    dm = _DataMesh(mesh) if mesh is not None else None
 
     @torch.no_grad()
     @full_f32_convs()
@@ -326,20 +436,20 @@ def build_eval_step(loss_cfg: LossConfig) -> Callable:
         rgbd, target_amp, target_phs = batch
         state.generator.eval()
         state.discriminator.eval()
-        poh = state.generator(gen_plan, rgbd)
-        hat_freq = asm.propagate_poh2freq_forward(gen_plan, poh)
-        target_freq = asm.filter_ap2filtered_freq(multi_plan, target_amp, target_phs)
-        amps, phss = asm.freq2ap_all_distances(multi_plan, torch.cat([hat_freq, target_freq]))
-        half = amps.shape[0] // 2
-        hat_amps, target_amps = amps[:half], amps[half:]
-        loss_from_d = -state.discriminator(hat_amps).mean()
-        _, metrics = _g_loss_terms(
-            loss_cfg, state.vgg, hat_amps, target_amps, phss[:half], phss[half:], loss_from_d
-        )
-        metrics["D_loss"] = torch.zeros((), device=hat_amps.device)
-        metrics["PSNR"] = psnr(hat_amps, target_amps)
-        metrics["SSIM"] = ssim(hat_amps, target_amps)
-        return metrics
+        gen_plan, multi_plan = _bind(spatial_mesh, gen_plan, multi_plan)
+        with _region(dm):
+            poh = state.generator(gen_plan, rgbd)
+            hat_freq = asm.propagate_poh2freq_forward(gen_plan, poh)
+            target_freq = asm.filter_ap2filtered_freq(multi_plan, target_amp, target_phs)
+            amps, phss = asm.freq2ap_all_distances(multi_plan, torch.cat([hat_freq, target_freq]))
+            half = amps.shape[0] // 2
+            hat_amps, target_amps = amps[:half], amps[half:]
+            loss_from_d = -state.discriminator(hat_amps).mean()
+            _, terms = _g_loss_terms(
+                loss_cfg, state.vgg, hat_amps, target_amps, phss[:half], phss[half:], loss_from_d
+            )
+            terms["D_loss"] = torch.zeros((), device=hat_amps.device)
+            return _metrics(dm, terms, hat_amps, target_amps)
 
     return eval_step
 

@@ -7,9 +7,13 @@ single-card high-resolution levers run as in the JAX package: ``remat``
 (per-block UNet recomputation and the step's remat sites), ``cache_h=False``
 (no transfer-function stack kept; H computed where it is used) and
 ``pad_cols_override`` (a 5-smooth column padding from
-``utils/fftlen.good_fft_pads``).  The ones this port does not support yet
-(spatial meshes, polyphase level 0) raise ``NotImplementedError`` naming
-the argument and its CLI flag.  The two-stage pretrain -> fine-tune workflow
+``utils/fftlen.good_fft_pads``); so does ``polyphase_level0`` (UNet level 0
+in the phase domain).  The multi-device modes (``parallel/``):
+``spatial_mesh`` binds the row-sharded pencil FFT into both plans, as the
+JAX package does, and ``data_mesh`` (where the JAX package shards the
+loader's batches and lets GSPMD do the rest) builds data-parallel steps;
+every rank runs the loop, and only rank 0 prints and writes files.  The
+two-stage pretrain -> fine-tune workflow
 runs as in the JAX package: per-part pretrained weights
 (``pretrained_part1/2_path``, flax ``.msgpack`` or torch files),
 ``freeze_part1``, and full-state checkpoints in ``resume_dir`` with
@@ -32,6 +36,7 @@ from ..config import DiscriminatorConfig, GeneratorConfig, LossConfig
 from ..losses import load_vgg19_params, make_vgg19
 from ..models import make_generator_plan
 from ..ops import asm
+from ..parallel import replicate_state
 from ..utils.normalize import tensor_normalizor_2d
 from . import checkpoint as ckpt_lib
 from .state import TrainState, build_modules, create_train_state
@@ -52,11 +57,6 @@ METRIC_KEYS = ("PSNR", "SSIM")
 def default_distance_stack() -> np.ndarray:
     """linspace(-1.5e-4, 0, 8)[:-1] (reference watermelon.py:39)."""
     return np.linspace(-1.5e-4, 0.0, 8)[:-1]
-
-
-def _refuse(name: str, flag: Optional[str]) -> None:
-    where = f" (--{flag})" if flag else ""
-    raise NotImplementedError(f"{name}{where} is not ported yet")
 
 
 class Watermelon:
@@ -91,14 +91,12 @@ class Watermelon:
         polyphase_level0: bool = False,
         pad_cols_override: Optional[int] = None,
         device: str | torch.device = "cuda",
+        data_mesh=None,
     ):
-        refused = [
-            (spatial_mesh is not None, "spatial_mesh", "spatial_mesh_devices"),
-            (polyphase_level0, "polyphase_level0", "polyphase_level0"),
-        ]
-        for bad, name, flag in refused:
-            if bad:
-                _refuse(name, flag)
+        if spatial_mesh is not None and data_mesh is not None:
+            raise ValueError("spatial_mesh and data_mesh are two layouts of the same ranks; pass one")
+        self.spatial_mesh = spatial_mesh
+        self.data_mesh = data_mesh
         self.critic_batching = critic_batching
         self.two_h_hat = two_h_hat
         self.device = torch.device(device)
@@ -123,6 +121,7 @@ class Watermelon:
             unet_base_features=unet_base_features,
             dtype=dtype,
             remat=remat,
+            polyphase_level0=polyphase_level0,
             pad_cols_override=pad_cols_override,
         )
         self.disc_config = DiscriminatorConfig(feature_d=feature_d, dtype=dtype)
@@ -140,6 +139,9 @@ class Watermelon:
             self.gen_config.optics(), distances=self.distance_stack, device=self.device,
             cache_h=cache_h,
         )
+        if spatial_mesh is not None:
+            self.gen_plan = self.gen_plan.with_spatial(spatial_mesh)
+            self.multi_plan = self.multi_plan.with_spatial(spatial_mesh)
         self.generator, self.discriminator = build_modules(self.gen_config, self.disc_config, use_gan)
         self.vgg = None
         if perceptual != "none":
@@ -161,6 +163,18 @@ class Watermelon:
         self.train_step = self.eval_step = None
 
     # ------------------------------------------------------------------
+    @property
+    def is_main(self) -> bool:
+        """True on the rank that prints and writes files: rank 0 under a
+        mesh, else the one process."""
+        if self.data_mesh is None and self.spatial_mesh is None:
+            return True
+        return torch.distributed.get_rank() == 0
+
+    def _print(self, *args) -> None:
+        if self.is_main:
+            print(*args)
+
     def _init_state(self, seed: int, lr_G: float, lr_D: float) -> None:
         self.state = create_train_state(
             seed, self.generator, self.discriminator, lr_G, lr_D, self.device, self.vgg,
@@ -168,14 +182,17 @@ class Watermelon:
         )
         if self.pretrained_model_path_G:
             ckpt_lib.load_generator(self.state, self.pretrained_model_path_G)
-            print(f"Generator loaded from {self.pretrained_model_path_G}")
+            self._print(f"Generator loaded from {self.pretrained_model_path_G}")
         if self.pretrained_model_path_D:
             ckpt_lib.load_discriminator(self.state, self.pretrained_model_path_D)
-            print(f"Discriminator loaded from {self.pretrained_model_path_D}")
+            self._print(f"Discriminator loaded from {self.pretrained_model_path_D}")
         if self.pretrained_part1_path:
             ckpt_lib.load_generator_part(self.state, self.pretrained_part1_path, "part1")
         if self.pretrained_part2_path:
             ckpt_lib.load_generator_part(self.state, self.pretrained_part2_path, "part2")
+        mesh = self.data_mesh or self.spatial_mesh
+        if mesh is not None:  # every rank starts from rank 0's state
+            replicate_state(self.state, mesh)
 
     # ------------------------------------------------------------------
     def train(
@@ -224,12 +241,13 @@ class Watermelon:
         ``start_epoch`` and ``resume_data_fast_forward=False`` the caller
         positions the loaders for ``start_epoch`` instead (chunked runs).
         """
+        main = self.is_main
         if save_path_G is None:
-            print("!!!!!!The save path of the generator is not specified, "
-                  "the model will not be saved!!!!!!")
+            self._print("!!!!!!The save path of the generator is not specified, "
+                        "the model will not be saved!!!!!!")
         if save_path_D is None:
-            print("!!!!!!The save path of the discriminator is not specified, "
-                  "the model will not be saved!!!!!!")
+            self._print("!!!!!!The save path of the discriminator is not specified, "
+                        "the model will not be saved!!!!!!")
 
         if not self.use_gan:
             # reference watermelon_without_GAN.train (:667-715)
@@ -252,9 +270,9 @@ class Watermelon:
         self.train_step = train_step = build_train_step(
             self.loss_cfg, self.use_gan, discriminator_train_ratio, discriminator_lambda,
             critic_batching=self.critic_batching, two_h_hat=self.two_h_hat,
-            remat=self.gen_config.remat,
+            remat=self.gen_config.remat, mesh=self.data_mesh,
         )
-        self.eval_step = build_eval_step(self.loss_cfg)
+        self.eval_step = build_eval_step(self.loss_cfg, mesh=self.data_mesh)
 
         history = {
             "epoch": [], "n_batch_in_epoch": [], "n_train": [], "n_batch": [],
@@ -299,7 +317,8 @@ class Watermelon:
                     val = self._validate(self.eval_step, data_loader_val)
                     denom = n_batch - n_batch_last
                     train_iter = {k: (train_acc[k] - acc_last[k]) / denom for k in train_acc}
-                    self._print_info(epoch, n_batch_in_epoch, n_train, n_batch, train_iter, val)
+                    if main:
+                        self._print_info(epoch, n_batch_in_epoch, n_train, n_batch, train_iter, val)
                     self._record(history, epoch, n_batch_in_epoch, n_train, n_batch, train_iter, val)
                     acc_last = dict(train_acc)
                     n_batch_last = n_batch
@@ -308,7 +327,7 @@ class Watermelon:
                     self._visualize(visualization_RGBD_AP, save_path_img,
                                     f"epoch {epoch}, batch {n_batch_in_epoch + 1}")
 
-            if epoch % checkpoint_iterval == 0 and n_batch > start_step:
+            if epoch % checkpoint_iterval == 0 and n_batch > start_step and main:
                 if save_path_G is not None:
                     p = ckpt_lib.epoch_path(save_path_G, epoch)
                     ckpt_lib.save_generator(self.state, p)
@@ -327,19 +346,20 @@ class Watermelon:
                     self._save_history(history, os.path.join(resume_dir, "history.json"))
                     ckpt_lib.prune_checkpoints(resume_dir, keep=3)
                     print(f"Full train state saving (async) to {p}")
-                if visualization_RGBD_AP is not None:
-                    self._visualize(visualization_RGBD_AP, save_path_img, f"epoch {epoch}")
+            if (epoch % checkpoint_iterval == 0 and n_batch > start_step
+                    and visualization_RGBD_AP is not None):
+                self._visualize(visualization_RGBD_AP, save_path_img, f"epoch {epoch}")
 
-        if save_path_G is not None:
+        if save_path_G is not None and main:
             ckpt_lib.save_generator(self.state, save_path_G)
             print(f"Generator saved to {save_path_G}")
-        if save_path_D is not None:
+        if save_path_D is not None and main:
             ckpt_lib.save_discriminator(self.state, save_path_D)
             print(f"Discriminator saved to {save_path_D}")
-        if loss_metrics_file is not None:
+        if loss_metrics_file is not None and main:
             self._save_history(history, loss_metrics_file)
             print(f"losses and metrics saved to {loss_metrics_file}")
-        if resume_dir is not None and n_batch > start_step:
+        if resume_dir is not None and n_batch > start_step and main:
             ckpt_lib.save_train_state(self.state, resume_dir)
             self._save_history(history, os.path.join(resume_dir, "history.json"))
             ckpt_lib.prune_checkpoints(resume_dir, keep=3)
@@ -366,7 +386,7 @@ class Watermelon:
                     "re-run with the matching --freeze_part1 setting or point resume_dir at "
                     "a fresh directory."
                 )
-        else:
+        elif self.is_main:
             os.makedirs(resume_dir, exist_ok=True)
             with open(meta_path, "w") as f:
                 json.dump({"freeze_part1": self.freeze_part1}, f)
@@ -376,7 +396,7 @@ class Watermelon:
         if os.path.exists(hist_path):
             with open(hist_path) as f:
                 history = json.load(f)
-        print(f"Resumed training from {resume_dir} at step {self.state.step}")
+        self._print(f"Resumed training from {resume_dir} at step {self.state.step}")
         return history, self.state.step
 
     # ------------------------------------------------------------------
@@ -440,6 +460,8 @@ class Watermelon:
         with torch.inference_mode():
             amp_hat, phs_hat = asm.propagate_poh2ap_forward(self.gen_plan, poh)
             both = tensor_normalizor_2d(torch.cat([amp_hat, phs_hat], dim=0)).cpu().numpy()
+        if not self.is_main:  # the other ranks took part in a spatial mesh's FFTs
+            return
         save_rgb_image(both[0], save_path_img, f"amp_hat in {tag}")
         save_rgb_image(both[1], save_path_img, f"phs_hat in {tag}")
         print(f"visualization saved at {tag}")

@@ -29,9 +29,17 @@ latest on a restart.  The high-resolution levers run as in the JAX
 package: ``--remat`` (recompute activations in the backward),
 ``--no_cache_h`` (no transfer-function stack kept) and
 ``--device_resident_data`` (both splits uploaded once, float32; batches
-gathered on the device).  Flags of the JAX package that the port does not
-support yet (``--mesh_devices``, ``--spatial_mesh_devices``,
-``--polyphase_level0``) raise ``NotImplementedError`` naming the flag.
+gathered on the device), and so does ``--polyphase_level0``.
+
+Multi-device (``parallel/``; one process per card): ``--mesh_devices N``
+trains data-parallel, each rank on its rows of every batch, and
+``--spatial_mesh_devices N`` runs every propagation FFT as the row-sharded
+pencil FFT over N ranks (both padded dims must divide by N).  Under
+``torchrun --nproc_per_node N`` each process runs one rank; started
+alone, the CLI starts its N ranks itself (NCCL on ``cuda:0..N-1``, gloo
+with ``--device cpu``).  Only rank 0 prints and writes files.
+``--device_resident_data`` with ``--mesh_devices`` is refused, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from __future__ import annotations
 import argparse
 import functools
 import os
+import sys
 from typing import Optional, Sequence
 
 import numpy as np
@@ -92,9 +101,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--dtype', type=str, default='float32', choices=['float32', 'bfloat16'],
                         help="Conv compute dtype; parameters stay float32.")
     parser.add_argument('--mesh_devices', type=int, default=0,
-                        help="Data-parallel over this many devices (not ported yet).")
+                        help="Data-parallel over this many devices, one process each (0 = single device).")
     parser.add_argument('--spatial_mesh_devices', type=int, default=0,
-                        help="Spatially shard every propagation FFT (not ported yet).")
+                        help="Spatially shard every propagation FFT over this many devices (pencil FFT; "
+                             "the count must divide both padded dims). 0 = off.")
     parser.add_argument('--unet_base_features', type=int, default=64,
                         help="UNet width multiplier (reference architecture = 64).")
     parser.add_argument('--pretrained_G', type=str, default=None,
@@ -119,7 +129,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Fold the fixed and focal transfer functions of the hat branch into one "
                              "(no spectrum built; O(1e-3) off the composed path).")
     parser.add_argument('--polyphase_level0', action='store_true',
-                        help="UNet level 0 in the space-to-depth phase domain (not ported yet).")
+                        help="Compute UNet level 0 in the space-to-depth phase domain (exact, same "
+                             "checkpoint tree).")
     parser.add_argument('--device_resident_data', action='store_true',
                         help="Upload both splits to device memory once; batches are gathered there.")
     parser.add_argument('--remat', action='store_true',
@@ -133,30 +144,62 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _refuse_unported(args) -> None:
-    """The flags with no counterpart in the trainer's arguments; the trainer
-    refuses the others it does not support."""
-    unported = [
-        (args.mesh_devices, "--mesh_devices"),
-    ]
-    for bad, flag in unported:
-        if bad:
-            raise NotImplementedError(f"{flag} is not ported yet")
+def _rank_entry(rank: int, world_size: int, argv: Sequence[str]):
+    """One rank of a run the CLI started itself: its history on rank 0."""
+    _, history = main(argv)
+    return history if rank == 0 else None
+
+
+def start_mesh(argv: Optional[Sequence[str]], n: int, device, entry):
+    """The mesh of ``n`` ranks this process belongs to, on this rank's
+    device, or None after running ``entry(rank, n, argv)`` on ``n`` ranks
+    started here (no process group and no launcher's environment); then
+    the ranks' results are in the second value."""
+    import torch.distributed as dist
+
+    from .parallel import launch
+    from .parallel import mesh as mesh_lib
+
+    if not dist.is_initialized() and not mesh_lib.initialize_distributed(device=device):
+        argv = list(sys.argv[1:] if argv is None else argv)
+        threads = 1 if device.type == "cpu" else None
+        return None, launch.spawn(entry, n, (argv,), device=device, timeout_s=1800.0, threads=threads)
+    return mesh_lib.make_mesh(n), None
 
 
 def main(argv: Optional[Sequence[str]] = None):
     """Run the CLI on ``argv``; returns the trainer (its ``state``, steps
-    and plans stay usable) and the history."""
+    and plans stay usable) and the history.  Under a mesh that the CLI
+    started itself, the trainer lives in the ranks' processes: returns
+    None and rank 0's history."""
     import torch
 
     from .data import ImgDepthAmpPhsDataset, dataset_to_device, device_epoch_loader, epoch_loader
+    from .parallel import batch_sharding
+    from .parallel import mesh as mesh_lib
     from .train import Watermelon
 
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    if args.mesh_devices and args.spatial_mesh_devices:
+        raise ValueError("--mesh_devices and --spatial_mesh_devices lay out the same ranks two ways; "
+                         "pass one")
+    if args.mesh_devices and args.device_resident_data:
+        raise SystemExit(
+            "--device_resident_data with --mesh_devices is not supported "
+            "yet: resident arrays would need per-device sharding. Use "
+            "the streaming loader under a mesh."
+        )
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but no CUDA device is available")
+    mesh = None
+    if args.mesh_devices or args.spatial_mesh_devices:
+        mesh, ranks = start_mesh(argv, args.mesh_devices or args.spatial_mesh_devices, device,
+                                 _rank_entry)
+        if mesh is None:
+            return None, ranks[0]
+        device = mesh_lib.local_device(device)
+    sharding = batch_sharding(mesh) if args.mesh_devices else None
 
     dataset_train = ImgDepthAmpPhsDataset(
         img_path=args.train_img_path,
@@ -186,7 +229,7 @@ def main(argv: Optional[Sequence[str]] = None):
         loader = device_epoch_loader
     else:
         train_data, val_data = dataset_train, dataset_validate
-        loader = functools.partial(epoch_loader, device=device)
+        loader = functools.partial(epoch_loader, device=device, sharding=sharding)
     epoch_seed = [SEED]
 
     def loader_train():
@@ -213,17 +256,19 @@ def main(argv: Optional[Sequence[str]] = None):
         unet_base_features=args.unet_base_features,
         remat=args.remat,
         cache_h=not args.no_cache_h,
-        spatial_mesh=args.spatial_mesh_devices or None,
+        spatial_mesh=mesh if args.spatial_mesh_devices else None,
+        data_mesh=mesh if args.mesh_devices else None,
         critic_batching=args.critic_batching,
         two_h_hat=args.two_h_hat,
         polyphase_level0=args.polyphase_level0,
         device=device,
     )
 
-    check_and_create_folder(os.path.dirname(args.save_path_G))
-    check_and_create_folder(os.path.dirname(args.save_path_D))
-    check_and_create_folder(os.path.dirname(args.loss_metrics_file))
-    check_and_create_folder(args.save_path_img)
+    if trainer.is_main:  # the rank that writes the files
+        check_and_create_folder(os.path.dirname(args.save_path_G))
+        check_and_create_folder(os.path.dirname(args.save_path_D))
+        check_and_create_folder(os.path.dirname(args.loss_metrics_file))
+        check_and_create_folder(args.save_path_img)
 
     history = trainer.train(
         data_loader_train=loader_train,

@@ -219,15 +219,25 @@ def test_stage2_card_check_on_cpu():
 
 
 def test_generate_poh_refuses_what_is_not_ported(tmp_path):
-    """--mesh_devices raises; flax checkpoints and --dtype bfloat16, refused
-    before they were ported, now load and run (a .msgpack without flax
-    variables, an empty map, is named as such)."""
+    """Flax checkpoints, --dtype bfloat16 and --mesh_devices, refused before
+    they were ported, now load and run (a .msgpack without flax variables,
+    an empty map, is named as such): --mesh_devices 2 starts two gloo
+    ranks, each with its half of the 4 distances, and rank 0's POH and
+    focal stack are the one-process run's (the planes within 1e-6, the JAX
+    package's distance-sharding bound)."""
     paths = _write_bins(tmp_path)
     (tmp_path / "G.msgpack").write_bytes(b"\x80")
     with pytest.raises(ValueError, match="holds no flax variables"):
         generate_poh.main(_argv(tmp_path, paths, str(tmp_path / "G.msgpack")))
-    with pytest.raises(NotImplementedError):
-        generate_poh.main(_argv(tmp_path, paths, "none.pt", ["--mesh_devices", "2"]))
+    stack = ["--propagate", "--num_intervals", "4", "--output_image_dir", str(tmp_path / "recon")]
+    whole = generate_poh.main(_argv(tmp_path, paths, "none.pt", stack))
+    sharded = generate_poh.main(_argv(tmp_path, paths, "none.pt", stack + ["--mesh_devices", "2"]))
+    torch.testing.assert_close(sharded["poh"], whole["poh"], rtol=0, atol=0)
+    np.testing.assert_allclose(sharded["focal_stack"].numpy(), whole["focal_stack"].numpy(), atol=1e-6)
+    assert sharded["png_paths"] == whole["png_paths"] and len(whole["png_paths"]) == 4
+    with pytest.raises(RuntimeError, match="do not split into 2 ranks"):
+        generate_poh.main(_argv(tmp_path, paths, "none.pt", ["--propagate", "--num_intervals", "3",
+                                                             "--mesh_devices", "2"]))
     poh = generate_poh.main(_argv(tmp_path, paths, "none.pt", ["--dtype", "bfloat16"]))["poh"]
     assert poh.dtype == torch.float32 and torch.isfinite(poh).all()
     with pytest.raises(IndexError, match="Index out of range"):
@@ -457,8 +467,24 @@ UNPORTED_TRAINING_FLAGS = [
 
 @pytest.mark.parametrize("extra", UNPORTED_TRAINING_FLAGS, ids=lambda e: e[0].lstrip("-"))
 def test_training_model_refuses_what_is_not_ported(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match=extra[0]):
-        training_model.main(_train_argv(tmp_path, extra))
+    """The flags refused before they were ported now run one GAN step:
+    the two mesh flags start two gloo ranks (rank 0 writes the files and
+    its history comes back), --polyphase_level0 trains the phase-domain
+    UNet in-process.  What the JAX package refuses stays refused."""
+    trainer, history = training_model.main(_train_argv(tmp_path, ["--use_gan", "--perceptual", "none", *extra]))
+    if extra[0] == "--polyphase_level0":
+        assert trainer.state.step == 1 and trainer.state.generator.part1.unet.polyphase_level0
+    else:
+        assert trainer is None
+        assert set(history) == set(json.load(open(tmp_path / "out" / "history.json")))
+    sd = torch.load(tmp_path / "out" / "G.pt", weights_only=True)
+    assert "part1.unet.enc_0.Conv_0.weight" in sd and all(torch.isfinite(v).all() for v in sd.values())
+    assert sorted(os.listdir(tmp_path / "out" / "imgs")) == ["amp_hat in epoch 0.png", "phs_hat in epoch 0.png"]
+    if extra[0] == "--mesh_devices":
+        with pytest.raises(SystemExit, match="--device_resident_data with --mesh_devices"):
+            training_model.main(_train_argv(tmp_path, [*extra, "--device_resident_data"]))
+        with pytest.raises(ValueError, match="pass one"):
+            training_model.main(_train_argv(tmp_path, [*extra, "--spatial_mesh_devices", "2"]))
 
 
 def _stage_files(tmp_path, hw=16, base=2):
