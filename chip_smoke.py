@@ -68,7 +68,8 @@ configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
      bfloat16 data, 1 epoch) and its 1080p evaluation; the 4K zero-shot
      evaluation (2176 x 3840, pads 352 / 580, ``--sequential
      --no_cache_h``); each run's K1/K2/K3 launches held to what the code
-     makes (none at the 1080p and 4K grids, which are not powers of two);
+     makes (at 1080p K1 and K2 on the mixed-radix rp 1728, no K3: the
+     3048 columns have no plan; at 4K K1 on rp 2880 and K3 on 2880 x 5000);
   12. the three paths at a small size on the card (kernels) against the CPU
      (plain versions), same weights and draws (``card_check``), the train
      step with each of the four options, in float32 and in bfloat16, a
@@ -97,7 +98,20 @@ configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
      BatchNorm shape of the step, twice differentiated; ``generate_poh
      --mesh_devices 1`` and bench.py's focal stack through a
      distance-sharded plan; a 2-rank NCCL data-parallel step where the
-     host has two cards.
+     host has two cards;
+  15. the mixed-radix FFT plans and the last modules
+     (``learned_hologram_gan_tpu_torch/mixed_radix_smoke.py``): K3 at 768,
+     1280, 1728, 2880 and 5000 along both axes and K1/K2 at those rp
+     against their plain versions; the portrait path at 640 x 384 (pads 320
+     / 192, a 1280 x 768 grid): ``make_synthetic_dataset`` (K3),
+     ``generate_poh --propagate`` in float32 and bfloat16 (K1), the float32
+     POH and stack against the CPU's, ``eval_quality`` (K1 and K3), the
+     batch-4 forward; ``set_fft_backend("mxu")`` and ``"xla"`` against K3;
+     the fourier generator at full width and against the CPU; an EXR round
+     trip through ``exr2bin`` on the native decoder;
+     ``make_synthetic_dataset`` at 384^2; a ``profile_op`` trace naming K3;
+     JSON lines for K1, K2 and K3 at the grids of the portrait, 1080p and
+     4K paths.
 
 It raises on any failure.  It prints the kernels' JSON line and then, as
 its last line, ``{"ok": true, "device": {...}}``.  It exits non-zero at once
@@ -431,7 +445,8 @@ def main():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr, flush=True)
         return 1
     from learned_hologram_gan_tpu_torch import (bf16_smoke, fft_ablation, fused_smoke, highres_smoke,
-                                                parallel_smoke, pretrain_smoke, serve_smoke, train_smoke)
+                                                mixed_radix_smoke, parallel_smoke, pretrain_smoke, serve_smoke,
+                                                train_smoke)
     from learned_hologram_gan_tpu_torch.ops.cuda import build, conv_block, fft, spectral, transfer
 
     t0 = time.perf_counter()
@@ -450,13 +465,18 @@ def main():
 
     with Phase("build"):
         start = time.perf_counter()
-        results = build.build_libraries([spectral.KERNEL_NAME, fft.KERNEL_NAME,
-                                         transfer.KERNEL_NAME, conv_block.KERNEL_NAME])
-        print(f"nvcc ({' '.join(build.NVCC_FLAGS)}), one process per source: "
-              f"{time.perf_counter() - start:.1f} s wall", flush=True)
-        for res in results.values():
-            print(f"{res.path.name}: {'cached' if res.cached else 'built'} in {res.seconds:.1f} s",
-                  flush=True)
+        names = [spectral.KERNEL_NAME, fft.KERNEL_NAME, transfer.KERNEL_NAME, conv_block.KERNEL_NAME]
+        # K1's and K3's mixed-radix plans: one library per E, those the paths use
+        mixed = [(name, d) for name in (spectral.KERNEL_NAME, fft.KERNEL_NAME)
+                 for d in mixed_radix_smoke.build_defines_of_the_paths() if d]
+        built = build.build_jobs([(name, ()) for name in names] + mixed)
+        results = {name: built[(name, ())] for name in names}
+        print(f"nvcc ({' '.join(build.NVCC_FLAGS)}), one process per source and macro set, "
+              f"{len(built)} at up to {os.cpu_count()} at once: {time.perf_counter() - start:.1f} s wall",
+              flush=True)
+        for (name, defines), res in built.items():
+            print(f"{res.path.name} {' '.join(defines)}: {'cached' if res.cached else 'built'} in "
+                  f"{res.seconds:.1f} s", flush=True)
             for line in res.log.splitlines():
                 if "ptxas" in line or "spill" in line:
                     print(line.strip(), flush=True)
@@ -478,6 +498,8 @@ def main():
         for mod in (fft, transfer, conv_block):
             mod._kernel_fn()
         spectral._kernel_fns()
+        for name, defines in mixed:
+            (spectral._kernel_fns if name == spectral.KERNEL_NAME else fft._kernel_fn)(defines)
 
     with Phase("kernels vs plain versions: inference (batch 16)"):
         k1 = phase_kernels(card)
@@ -573,6 +595,35 @@ def main():
             f"{dtype} {leg}": launches[leg][name] for dtype, legs in par["legs"].items()
             for launches in (legs["launches"],) for leg in ("dp", "spatial", "poly")}
 
+    with Phase("mixed-radix FFT plans: K1/K2/K3 at 768-5000, the portrait path, the FFT backends, "
+               "the fourier generator, exr2bin, make_synthetic_dataset, the profiler"):
+        transfer.reset_launch_counts()
+        mixed_entries, _ = mixed_radix_smoke.kernels(card)
+        portrait = mixed_radix_smoke.portrait(card)
+        mixed_radix_smoke.backends(card)
+        mixed_radix_smoke.fourier(card)
+        mixed_radix_smoke.exr_round_trip(card)
+        synth384 = mixed_radix_smoke.synthetic_384(card)
+        mixed_radix_smoke.trace_k3_both(card, time.perf_counter() - t0)
+        if transfer.apply_transfer_stack.launches:
+            raise AssertionError("K4 launched in the mixed-radix phase, want 0")
+    hd = highres["train_1080p"]["remat, H on the fly"]["launches"]
+    uhd = highres["eval_4k"]["launches"]
+    mixed_kernels = [
+        dict(mixed_entries["k1_portrait"].json(), launches=sum(portrait["generate_poh_launches"]["k1"].values()),
+             eval_launches=portrait["eval_launches"]["k1"]),
+        dict(mixed_entries["k3_portrait"].json(),
+             launches=portrait["synth_launches"]["k3"] + portrait["eval_launches"]["k3"],
+             synth_launches=portrait["synth_launches"]["k3"], eval_launches=portrait["eval_launches"]["k3"]),
+        dict(mixed_entries["k1_1080p"].json(), launches=sum(hd["k1"].values()), by_mode=hd["k1"],
+             finetune_launches=highres["finetune_1080p"]["launches"]["k1"]),
+        dict(mixed_entries["k2_1080p"].json(), launches=sum(hd["k2"].values()), by_mode=hd["k2"],
+             finetune_launches=highres["finetune_1080p"]["launches"]["k2"]),
+        dict(mixed_entries["k1_4k"].json(), launches=sum(uhd["k1"].values())),
+        dict(mixed_entries["k3_4k"].json(), launches=uhd["k3"]),
+    ]
+    train_kernels["k3"]["synthetic_384_launches"] = synth384["launches"]["k3"]
+
     print("train steps at full width, batch 4, ratio 5 (host clock):", flush=True)
     for r in runs:
         print(f"  {r['label']:45s} {r['steps_per_s']:.3f} steps/s, peak {r['peak_gib']:.2f} GiB; "
@@ -601,7 +652,7 @@ def main():
                dict(k5_unet.json(), launches=k5_launches,
                     registers={k: v for k, v in registers.items() if k.startswith("K5 f32")}),
                dict(k5_bf16.json(), launches=k5_bf16_launches,
-                    registers={k: v for k, v in registers.items() if k.startswith("K5 bf16")})]
+                    registers={k: v for k, v in registers.items() if k.startswith("K5 bf16")})] + mixed_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

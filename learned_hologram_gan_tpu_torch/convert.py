@@ -3,8 +3,11 @@
 Input: a network's ``{"params": ..., "batch_stats": ...}`` variables as
 nested dicts of numpy arrays (how they come out of flax, or out of a
 msgpack file read by ``train/flax_msgpack.py``).  Output: a ``state_dict``
-for the port's module (the Generator, the critic, VGG19), whose submodules
-carry the flax names, so each leaf maps by its path:
+for the port's module (the Generator, with the plain or the fourier UNet,
+the critic, VGG19, ``nn.blocks``' ResNets, ``MiniUNet`` and ``RGBDUNet``),
+whose submodules carry the flax names (a FourierBlock's
+``ResidualBlock_0..2``, ``ResNetPOH``'s ``_ResNetBase_0``, ``unet_r/g/b``),
+so each leaf maps by its path, however deep:
 
   conv ``kernel`` (H, W, I, O)            -> ``weight`` (O, I, H, W)
   transposed-conv ``kernel`` (2, 2, I, O) -> ``weight`` (I, O, 2, 2) with the

@@ -1,61 +1,99 @@
 // Register-resident FFT core for Hopper, shared by K1 and K2
 // (k1_asm_propagate.cu: the row pass and its adjoint) and K3 (k3_fft.cu).
 //
-// A line of n = 2^m points is transformed by T = n / E threads that each
-// hold E = min(n, 32) of its values in registers: thread j holds element
+// A line of n = 2^a 3^b 5^c points is transformed by T = n / E threads
+// that each hold E of its values in registers: thread j holds element
 // j + T * c in v[c], on the way in and on the way out (natural order).
 // The transform is a mixed-radix Stockham FFT (decimation in time), as the
 // plan says (ops/cuda/fft_plan.py, built in float64 and rounded to
-// complex64 by the wrapper): pass i of radix R = 2^lg_radix[i] and stride
-// Ns = 2^lg_ns[i] takes butterfly jj < n / R from the elements
-// jj + r * n / R, multiplies element r by w^(r * (jj mod Ns)),
-// w = exp(-2 pi i / (Ns R)) (the plan's table), runs an R-point DFT in
-// registers and hands element r on to (jj div Ns) Ns R + jj mod Ns + r Ns.
-// Thread j runs butterflies jj = j + b T, b < E / R, with butterfly b's
-// element r in v[b + r E / R].  Every pass but the last has radix 32, so a
-// 1024-point line is two 32-point DFTs per thread with one exchange through
-// shared memory, and no line needs more than two.
+// complex64 by the wrapper): pass i of radix R = radix[i] and stride
+// Ns = ns[i] takes butterfly jj < n / R from the elements jj + r * n / R,
+// multiplies element r by w^(r * (jj mod Ns)), w = exp(-2 pi i / (Ns R))
+// (the plan's table), runs an R-point DFT in registers and hands element r
+// on to (jj div Ns) Ns R + jj mod Ns + r Ns.  Thread j runs butterflies
+// jj = j + b T, b < E / R, with butterfly b's element r in v[b + r E / R]:
+// every radix of a plan divides its E.  A power of two takes E = min(n, 32)
+// and radix 32 for every pass but the last, so a 1024-point line is two
+// 32-point DFTs per thread with one exchange through shared memory, and no
+// such line needs more than two.  Other lengths take E from
+// LHG_FFT_MIXED_ELEMS (up to 60; 1280 = 40 * 8 * 4 with E = 40), one
+// library per E (LHG_FFT_KERNEL_ELEMS).
+//
+// The register DFTs: a power of two by radix-2 decimation in frequency
+// (constants of w_32); 3 and 5 by their direct formulas; any other radix
+// R = P M (P = 5 or 3) as P-point DFTs at stride M, twiddles w_R^(n1 k2)
+// (constants computed in double at compile time and rounded to float), then
+// M-point DFTs, renamed into natural order (no instructions once unrolled).
 //
 // An exchange stores element e at fft_plan.py:pad_index(e) (one gap of Ns after
-// every Ns R values), scaled by the layout's stride: a half-warp's 8-byte
-// accesses then fall on 16 distinct bank pairs, both when a pass writes and
-// when the next one reads.  Each exchange is bracketed by two barriers of
-// the line's threads (a warp's or the block's, as the caller says); the
-// twiddles are read through the read-only cache, consecutive threads on
-// consecutive entries.  Only forward transforms are run: the inverse is
-// conj(F(conj(x))), which the callers fold into their loads and stores.
+// every Ns R values), scaled by the layout's stride: for powers of two a
+// half-warp's 8-byte accesses then fall on 16 distinct bank pairs, both
+// when a pass writes and when the next one reads (other lengths: the
+// bounded conflicts tests/test_torch_fft_plan.py states).  Each exchange
+// is bracketed by two barriers of the line's threads (a warp's or the
+// block's, as the caller says); the twiddles are read through the
+// read-only cache, consecutive threads on consecutive entries.  Division
+// by Ns is a shift in a power-of-two plan, (x * magic) >> shift in the
+// others (fft_plan.py:div_magic).  The power-of-two library (no
+// LHG_FFT_ELEMS) carries its radices and strides as log2 in a plan of 14
+// integers and runs the power-of-two code alone; a mixed-radix library
+// (LHG_FFT_ELEMS=E) carries values, magic numbers and shifts in 50.  Only forward
+// transforms are run: the inverse is conj(F(conj(x))), which the callers
+// fold into their loads and stores.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <string.h>
 
 namespace lhg {
 namespace hopper {
 
-constexpr int kMaxPasses = 3;  // 16384 = 32 * 32 * 16, fft_plan.py:MAX_PASSES
+// The values per thread (E) of the plans of lengths that are not powers of
+// two (fft_plan.py:MIXED_ELEMS).  A build of K1 or K3 instantiates its
+// kernels for the powers of two, or, with -DLHG_FFT_ELEMS=E
+// (fft_plan.py:build_defines), for that one E: each such library builds at
+// the first use of a length of its E, and the libraries build in parallel.
+#define LHG_FFT_MIXED_ELEMS(X) \
+  X(3) X(5) X(6) X(9) X(10) X(12) X(15) X(18) X(20) X(24) X(25) X(27) X(30) X(36) X(40) X(45) \
+  X(48) X(50) X(54) X(60)
+#ifdef LHG_FFT_ELEMS
+#define LHG_FFT_KERNEL_ELEMS(X) X(LHG_FFT_ELEMS)
+#else
+#define LHG_FFT_KERNEL_ELEMS(X) X(32) X(16) X(8) X(4) X(2)
+#endif
+
+// A kernel instantiated for E values a thread may use up to 255 registers:
+// its blocks hold at most 256 threads where E > 32 (fft_plan.py:max_threads).
+__host__ __device__ constexpr int max_block_threads(int elems) { return elems > 32 ? 256 : 512; }
 
 // ops/cuda/fft_plan.py:plan_ints, field for field
+#ifdef LHG_FFT_ELEMS
+constexpr int kMaxPasses = 9;  // 13824 = 54 * 2^8, fft_plan.py:MAX_PASSES
+struct FftPlan {
+  int n, elems, threads, passes, buffer;
+  int radix[kMaxPasses];
+  int ns[kMaxPasses];
+  int ns_magic[kMaxPasses];  // jj / ns == (jj * ns_magic) >> ns_shift for jj < 2^14
+  int ns_shift[kMaxPasses];
+  int tw_off[kMaxPasses];
+};
+static_assert(sizeof(FftPlan) == 50 * sizeof(int), "FftPlan must match plan_ints");
+#else
+constexpr int kMaxPasses = 3;  // 16384 = 32 * 32 * 16, fft_plan.py:POW2_MAX_PASSES
 struct FftPlan {
   int n, elems, threads, passes, buffer;
   int lg_radix[kMaxPasses];
   int lg_ns[kMaxPasses];
   int tw_off[kMaxPasses];
 };
+static_assert(sizeof(FftPlan) == 14 * sizeof(int), "FftPlan must match plan_ints");
+#endif
 
-// The struct from plan_ints' 14 integers (host memory).
+// The struct from plan_ints' integers (host memory).
 inline FftPlan plan_from_ints(const int* f) {
-  static_assert(sizeof(FftPlan) == 14 * sizeof(int), "FftPlan must match plan_ints");
   FftPlan plan;
-  plan.n = f[0];
-  plan.elems = f[1];
-  plan.threads = f[2];
-  plan.passes = f[3];
-  plan.buffer = f[4];
-  for (int i = 0; i < kMaxPasses; ++i) {
-    plan.lg_radix[i] = f[5 + i];
-    plan.lg_ns[i] = f[5 + kMaxPasses + i];
-    plan.tw_off[i] = f[5 + 2 * kMaxPasses + i];
-  }
+  memcpy(&plan, f, sizeof(FftPlan));
   return plan;
 }
 
@@ -115,18 +153,151 @@ struct DifStages<R, 0> {
   static __device__ __forceinline__ void run(float2 (&)[R]) {}
 };
 
-// Forward R-point DFT, in registers, of x[0], x[S], ..., x[(R-1) S]:
+// Forward R-point DFT, in registers, of a[0..R) for R a power of two:
 // radix-2 decimation in frequency, then the bit-reversed result renamed
 // into natural order (no instructions once unrolled).
+template <int R>
+__device__ __forceinline__ void dft_pow2(float2 (&a)[R]) {
+  constexpr int kLog = log2_const(R);
+  DifStages<R, R / 2>::run(a);
+  float2 b[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) b[i] = a[bit_reverse(i, kLog)];
+#pragma unroll
+  for (int i = 0; i < R; ++i) a[i] = b[i];
+}
+
+// cos and sin in double by their Taylor series, |x| <= pi, for constants
+// computed at compile time (error ~1e-16 before the rounding to float)
+__host__ __device__ constexpr double taylor_sin(double x) {
+  double term = x, sum = x;
+  for (int k = 1; k < 30; ++k) {
+    term *= -x * x / ((2 * k) * (2 * k + 1));
+    sum += term;
+  }
+  return sum;
+}
+
+__host__ __device__ constexpr double taylor_cos(double x) {
+  double term = 1.0, sum = 1.0;
+  for (int k = 1; k < 30; ++k) {
+    term *= -x * x / ((2 * k - 1) * (2 * k));
+    sum += term;
+  }
+  return sum;
+}
+
+// (cos, sin)(2 pi q / R), q < R, rounded to float (the angle taken in
+// (-pi, pi]), as the CPU tests check
+template <int R>
+struct RootTable {
+  float c[R];
+  float s[R];
+};
+
+template <int R>
+__host__ __device__ constexpr RootTable<R> make_root_table() {
+  RootTable<R> t{};
+  for (int q = 0; q < R; ++q) {
+    const int qq = 2 * q > R ? q - R : q;
+    const double x = 2.0 * 3.14159265358979323846 * qq / R;
+    t.c[q] = static_cast<float>(taylor_cos(x));
+    t.s[q] = static_cast<float>(taylor_sin(x));
+  }
+  return t;
+}
+
+// d * w_R^q, w_R = exp(-2 pi i / R), q < R (a constant once unrolled); the
+// quarter turns exact
+template <int R>
+__device__ __forceinline__ float2 mul_root(float2 d, int q) {
+  constexpr RootTable<R> kRoots = make_root_table<R>();
+  if (q == 0) return d;
+  if (2 * q == R) return make_float2(-d.x, -d.y);
+  if (4 * q == R) return make_float2(d.y, -d.x);      // times -i
+  if (4 * q == 3 * R) return make_float2(-d.y, d.x);  // times +i
+  const float c = kRoots.c[q], s = kRoots.s[q];
+  return make_float2(d.x * c + d.y * s, d.y * c - d.x * s);
+}
+
+// Forward R-point DFT of a[0..R) in place, natural order in and out, for
+// R = 2^a 3^b 5^c (the header's comment).
+template <int R>
+__device__ __forceinline__ void dft_regs(float2 (&a)[R]) {
+  if constexpr ((R & (R - 1)) == 0) {
+    dft_pow2<R>(a);
+  } else if constexpr (R == 3) {
+    constexpr float kS3 = 0.866025388f;  // sin(2 pi / 3)
+    const float2 s = make_float2(a[1].x + a[2].x, a[1].y + a[2].y);
+    const float2 d = make_float2(a[1].x - a[2].x, a[1].y - a[2].y);
+    const float2 m = make_float2(a[0].x - 0.5f * s.x, a[0].y - 0.5f * s.y);
+    a[0] = make_float2(a[0].x + s.x, a[0].y + s.y);
+    a[1] = make_float2(m.x + kS3 * d.y, m.y - kS3 * d.x);
+    a[2] = make_float2(m.x - kS3 * d.y, m.y + kS3 * d.x);
+  } else if constexpr (R == 5) {
+    constexpr float kC1 = 0.309017003f;   // cos(2 pi / 5)
+    constexpr float kC2 = -0.809017003f;  // cos(4 pi / 5)
+    constexpr float kS1 = 0.95105654f;    // sin(2 pi / 5)
+    constexpr float kS2 = 0.587785244f;   // sin(4 pi / 5)
+    const float2 s14 = make_float2(a[1].x + a[4].x, a[1].y + a[4].y);
+    const float2 d14 = make_float2(a[1].x - a[4].x, a[1].y - a[4].y);
+    const float2 s23 = make_float2(a[2].x + a[3].x, a[2].y + a[3].y);
+    const float2 d23 = make_float2(a[2].x - a[3].x, a[2].y - a[3].y);
+    const float2 m1 = make_float2(a[0].x + kC1 * s14.x + kC2 * s23.x,
+                                  a[0].y + kC1 * s14.y + kC2 * s23.y);
+    const float2 m2 = make_float2(a[0].x + kC2 * s14.x + kC1 * s23.x,
+                                  a[0].y + kC2 * s14.y + kC1 * s23.y);
+    const float2 n1 = make_float2(kS1 * d14.x + kS2 * d23.x, kS1 * d14.y + kS2 * d23.y);
+    const float2 n2 = make_float2(kS2 * d14.x - kS1 * d23.x, kS2 * d14.y - kS1 * d23.y);
+    a[0] = make_float2(a[0].x + s14.x + s23.x, a[0].y + s14.y + s23.y);
+    a[1] = make_float2(m1.x + n1.y, m1.y - n1.x);  // m1 - i n1
+    a[4] = make_float2(m1.x - n1.y, m1.y + n1.x);  // m1 + i n1
+    a[2] = make_float2(m2.x + n2.y, m2.y - n2.x);
+    a[3] = make_float2(m2.x - n2.y, m2.y + n2.x);
+  } else {
+    constexpr int P = R % 5 == 0 ? 5 : 3;
+    constexpr int M = R / P;
+    // X[P k1 + k2] = sum_n1 w_M^(n1 k1) w_R^(n1 k2) sum_n2 x[n1 + M n2] w_P^(n2 k2)
+#pragma unroll
+    for (int n1 = 0; n1 < M; ++n1) {
+      float2 t[P];
+#pragma unroll
+      for (int n2 = 0; n2 < P; ++n2) t[n2] = a[n1 + M * n2];
+      dft_regs<P>(t);
+#pragma unroll
+      for (int k2 = 0; k2 < P; ++k2) a[n1 + M * k2] = mul_root<R>(t[k2], n1 * k2);
+    }
+    float2 out[R];
+#pragma unroll
+    for (int k2 = 0; k2 < P; ++k2) {
+      float2 t[M];
+#pragma unroll
+      for (int k1 = 0; k1 < M; ++k1) t[k1] = a[M * k2 + k1];
+      dft_regs<M>(t);
+#pragma unroll
+      for (int k1 = 0; k1 < M; ++k1) out[P * k1 + k2] = t[k1];
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[i] = out[i];
+  }
+}
+
+// Forward R-point DFT, in registers, of x[0], x[S], ..., x[(R-1) S]; a
+// power of two renames its bit-reversed result straight into x.
 template <int R, int S>
 __device__ __forceinline__ void dft(float2* x) {
-  constexpr int kLog = log2_const(R);
   float2 a[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) a[i] = x[i * S];
-  DifStages<R, R / 2>::run(a);
+  if constexpr ((R & (R - 1)) == 0) {
+    DifStages<R, R / 2>::run(a);
 #pragma unroll
-  for (int i = 0; i < R; ++i) x[i * S] = a[bit_reverse(i, kLog)];
+    for (int i = 0; i < R; ++i) x[i * S] = a[bit_reverse(i, log2_const(R))];
+  } else {
+    dft_regs<R>(a);
+#pragma unroll
+    for (int i = 0; i < R; ++i) x[i * S] = a[i];
+  }
 }
 
 // The barrier of a line's threads: its warp's, or the block's.
@@ -141,12 +312,73 @@ struct LineSync {
   }
 };
 
+// True where a line's T threads lie in one warp (a block's lines lie one
+// after another), so that its exchange needs only __syncwarp: T divides
+// 32 (a line of 20 threads would straddle two warps), which for the
+// powers of two is T <= 32.
+__device__ __forceinline__ bool line_in_warp(int threads) {
+#ifdef LHG_FFT_ELEMS
+  return 32 % threads == 0;
+#else
+  return threads <= 32;
+#endif
+}
+
 // Pass i of radix R.  The exchange positions are pad_index's, written as
 // base + r * stride (the padding gap falls between the r's of a butterfly,
-// never inside its stride): pass i writes element r of butterfly jj at
-// ((jj >> lg_ns) << (lg_ns + log2 R)) + jj + r * Ns, and pass i reads its
-// element r, jj + r n / R, at jj + ((jj >> lg_ns) << plg_ns) + r * (n / R +
-// ((n / R) >> lg_ns) << plg_ns), where plg_ns is the previous pass's stride.
+// never inside its stride): with q = jj div Ns, pass i writes element r of
+// butterfly jj at q Ns R + jj + r Ns, and reads its element r, jj + r n / R,
+// at jj + q pNs + r (n / R + (n / R div Ns) pNs), where pNs is the previous
+// pass's stride.
+#ifdef LHG_FFT_ELEMS
+template <int E, int R>
+__device__ __forceinline__ void run_pass(float2 (&v)[E], const FftPlan& p, int i, int j,
+                                         float2* buf, int bs, const float2* __restrict__ tw,
+                                         LineSync sync) {
+  constexpr int B = E / R;
+  const int T = p.threads;
+  const int ns = p.ns[i];
+  const int magic = p.ns_magic[i];
+  const int shift = p.ns_shift[i];
+  const auto div_ns = [&](int x) { return (x * magic) >> shift; };
+  if (i > 0) {
+    const int pns = p.ns[i - 1];
+    const int span = p.n / R;
+    const int stride = (span + div_ns(span) * pns) * bs;
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int jj = j + b * T;
+      const float2* src = buf + (jj + div_ns(jj) * pns) * bs;
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[b + r * B] = src[r * stride];
+    }
+  }
+  const float2* __restrict__ w = tw + p.tw_off[i];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    if (ns > 1) {
+      const int jj = j + b * T;
+      const float2* __restrict__ wm = w + (jj - div_ns(jj) * ns);
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[b + r * B] = cmul(v[b + r * B], __ldg(wm + (r - 1) * ns));
+    }
+    dft<R, B>(&v[b]);
+  }
+  if (i + 1 < p.passes) {
+    sync();  // the previous reads of the buffer are done
+    const int stride = ns * bs;
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int jj = j + b * T;
+      float2* dst = buf + (div_ns(jj) * ns * R + jj) * bs;
+#pragma unroll
+      for (int r = 0; r < R; ++r) dst[r * stride] = v[b + r * B];
+    }
+    sync();  // the writes are visible to the next pass
+  }
+}
+#else
+// Here Ns = 2^lg_ns: q = jj >> lg_ns, and the positions are shifts.
 template <int E, int R>
 __device__ __forceinline__ void run_pass(float2 (&v)[E], const FftPlan& p, int i, int j,
                                          float2* buf, int bs, const float2* __restrict__ tw,
@@ -191,6 +423,7 @@ __device__ __forceinline__ void run_pass(float2 (&v)[E], const FftPlan& p, int i
     sync();  // the writes are visible to the next pass
   }
 }
+#endif
 
 // Forward FFT of one line held as described at the top.  `buf` is the
 // line's exchange (element position q at buf[q * bs]), `tw` the plan's
@@ -201,7 +434,21 @@ __device__ __forceinline__ void fft_line(float2 (&v)[E], const FftPlan& p, int j
 #ifdef LHG_ABLATE_FFT
   return;  // a measurement build of fft_ablation.py: no transform, a wrong result
 #endif
+#define LHG_FFT_RADIX(R) \
+  case R:                \
+    if constexpr (E % R == 0) run_pass<E, R>(v, p, i, j, buf, bs, tw, sync); \
+    break;
   for (int i = 0; i < p.passes; ++i) {
+#ifdef LHG_FFT_ELEMS
+    switch (p.radix[i]) {
+      LHG_FFT_RADIX(2) LHG_FFT_RADIX(3) LHG_FFT_RADIX(4) LHG_FFT_RADIX(5) LHG_FFT_RADIX(6)
+      LHG_FFT_RADIX(8) LHG_FFT_RADIX(9) LHG_FFT_RADIX(10) LHG_FFT_RADIX(12) LHG_FFT_RADIX(15)
+      LHG_FFT_RADIX(16) LHG_FFT_RADIX(18) LHG_FFT_RADIX(20) LHG_FFT_RADIX(24) LHG_FFT_RADIX(25)
+      LHG_FFT_RADIX(27) LHG_FFT_RADIX(30) LHG_FFT_RADIX(32) LHG_FFT_RADIX(36) LHG_FFT_RADIX(40)
+      LHG_FFT_RADIX(45) LHG_FFT_RADIX(48) LHG_FFT_RADIX(50) LHG_FFT_RADIX(54) LHG_FFT_RADIX(60)
+      default: break;
+    }
+#else
     switch (p.lg_radix[i]) {
       case 1: run_pass<E, 2>(v, p, i, j, buf, bs, tw, sync); break;
       case 2: if constexpr (E >= 4) run_pass<E, 4>(v, p, i, j, buf, bs, tw, sync); break;
@@ -210,7 +457,9 @@ __device__ __forceinline__ void fft_line(float2 (&v)[E], const FftPlan& p, int j
       case 5: if constexpr (E >= 32) run_pass<E, 32>(v, p, i, j, buf, bs, tw, sync); break;
       default: break;
     }
+#endif
   }
+#undef LHG_FFT_RADIX
 }
 
 }  // namespace hopper

@@ -32,7 +32,10 @@
 //   * The rp-point FFTs along the rows run in registers on the core of
 //     fft_hopper.cuh: at rp = 1024 each thread holds 32 values of its
 //     column and does two 32-point DFTs with one exchange through shared
-//     memory (interleaved by column, padded free of bank conflicts).  The
+//     memory (interleaved by column, padded free of bank conflicts).  Any
+//     rp with a mixed-radix plan runs the same way on up to 60 values a
+//     thread (1280 = 40 * 8 * 4, 1728 = 24 * 24 * 3), in blocks of up to
+//     256 threads there.  The
 //     spectrum comes out in natural order, in the order the inverse
 //     transform takes its input: it is multiplied by the mask once, kept
 //     in shared memory (thread-private slots) across the distances, and
@@ -90,8 +93,7 @@ using lhg::hopper::FftPlan;
 using lhg::hopper::cmul;
 using lhg::hopper::LineSync;
 using lhg::hopper::fft_line;
-
-constexpr int kRowPassThreads = 512;  // K1's and K2's largest block (cpb * T)
+using lhg::hopper::max_block_threads;  // K1's and K2's largest block (cpb * T)
 
 // H at padded row k (fx) and padded column col (fy), for the plane's
 // 1/lambda^2 `wl2_p` and sz = f32(+-2pi) * z.
@@ -129,7 +131,7 @@ __device__ __forceinline__ float2 h_masked(int k, int col, int rp, int cp,
 // `spec` (the spectrum, when D > 1) and `work` (the spectrum times H, in
 // the exchange's space, which no FFT is using at the time).
 template <int E>
-__global__ void __launch_bounds__(kRowPassThreads)
+__global__ void __launch_bounds__(E > 32 ? 256 : 512)  // max_block_threads(E)
 asm_row_pass_kernel(const float2* __restrict__ x,      // (P, rows|rp, cp)
                     float2* __restrict__ out,          // (P, D, rows, cp)
                     const float* __restrict__ wl2,     // (P,)
@@ -222,7 +224,7 @@ asm_row_pass_kernel(const float2* __restrict__ x,      // (P, rows|rp, cp)
 // the product or the conjugated sum that the inverse takes, in the
 // exchange's space) and `acc` (the distance sum, when D > 1).
 template <int E>
-__global__ void __launch_bounds__(kRowPassThreads)
+__global__ void __launch_bounds__(E > 32 ? 256 : 512)  // max_block_threads(E)
 asm_row_adjoint_kernel(const float2* __restrict__ g,      // (P, D, rows, cp)
                        float2* __restrict__ out,          // (P, rows|rp, cp)
                        const float* __restrict__ wl2,     // (P,)
@@ -320,7 +322,7 @@ struct Args {
 };
 
 bool valid_args(const Args& a) {
-  return a.rp >= 2 && (a.rp & (a.rp - 1)) == 0 && a.r0 >= 0 && a.rows + a.r0 <= a.rp &&
+  return a.rp >= 2 && a.r0 >= 0 && a.rows + a.r0 <= a.rp &&
          a.num_planes <= 65535 && (!a.per_plane || a.num_d == 1);
 }
 
@@ -366,20 +368,20 @@ int launch(bool adjoint, const void* in, void* out, const void* wl2, const void*
                            inv_rp_pitch, inv_cp_pitch, two_pi_signed);
   const FftPlan plan = lhg::hopper::plan_from_ints(plan_ints);
   if (!valid_args(a) || plan.n != rp || plan.elems * plan.threads != rp || cpb < 1 ||
-      (cpb & (cpb - 1)) != 0 || cpb * plan.threads > kRowPassThreads) {
+      (cpb & (cpb - 1)) != 0 || cpb * plan.threads > max_block_threads(plan.elems)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LHG_K1_CASE(E) \
+  case E:              \
+    return launch_row<E>(adjoint, a, plan, cpb, s);
   switch (plan.elems) {
-    case 32: return launch_row<32>(adjoint, a, plan, cpb, s);
-    case 16: return launch_row<16>(adjoint, a, plan, cpb, s);
-    case 8: return launch_row<8>(adjoint, a, plan, cpb, s);
-    case 4: return launch_row<4>(adjoint, a, plan, cpb, s);
-    case 2: return launch_row<2>(adjoint, a, plan, cpb, s);
+    LHG_FFT_KERNEL_ELEMS(LHG_K1_CASE)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef LHG_K1_CASE
 }
 
 }  // namespace

@@ -13,6 +13,11 @@
 // adjoint of an unnormalised forward transform is the unnormalised inverse.
 // The inverse runs as conj(F(conj(x))), folded into the load and the store.
 //
+// Lengths: every n = 2^a 3^b 5^c up to 16384 that has a plan
+// (fft_plan.py:make_plan): powers of two on E = min(n, 32), the others on
+// the mixed-radix plans of LHG_FFT_MIXED_ELEMS (1280 = 40 * 8 * 4, 768 =
+// 48 * 16), each a DFT of length n itself, never padded to a power of two.
+//
 // Bound: a pass reads and writes the planes once, 2 * 8 bytes per element;
 // at the training shapes (12 planes of 1024 x 1024) that is 201 MB, ~0.06
 // ms at 3.35 TB/s, against ~6.3e8 FLOP (~0.01 ms at 67 TFLOP/s f32): it is
@@ -27,7 +32,9 @@
 // segment of lpb * 8 bytes (64 bytes at n = 1024), and the exchange is
 // interleaved too (position q of column l at q * lpb + l) under the
 // block's barrier.  Each thread issues all E of its loads before it
-// computes, so 8 KB per warp are in flight.
+// computes, so 8 KB per warp are in flight.  Along axis -1 a line's
+// exchange needs only __syncwarp where its T threads lie in one warp
+// (fft_hopper.cuh:line_in_warp); else the block's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,11 +46,10 @@ namespace {
 using lhg::hopper::FftPlan;
 using lhg::hopper::LineSync;
 using lhg::hopper::fft_line;
-
-constexpr int kMaxThreads = 512;
+using lhg::hopper::max_block_threads;
 
 template <int E, bool kColumns>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(E > 32 ? 256 : 512)  // max_block_threads(E)
 fft_axis_kernel(const float2* __restrict__ x, float2* __restrict__ y,
                 const float2* __restrict__ twiddle, const __grid_constant__ FftPlan plan,
                 int lines, int lpb, long long line_stride, long long elem_stride,
@@ -67,7 +73,8 @@ fft_axis_kernel(const float2* __restrict__ x, float2* __restrict__ y,
     v[c].y *= conj;
   }
   float2* buf = kColumns ? smem + l : smem + static_cast<size_t>(l) * plan.buffer;
-  fft_line<E>(v, plan, j, buf, kColumns ? lpb : 1, twiddle, LineSync{!kColumns && T <= 32});
+  fft_line<E>(v, plan, j, buf, kColumns ? lpb : 1, twiddle,
+              LineSync{!kColumns && lhg::hopper::line_in_warp(T)});
   if (!valid) return;
   const float scale_y = conj * scale;
 #pragma unroll
@@ -107,7 +114,7 @@ extern "C" int k3_fft_axis(const void* x, void* y, const void* twiddle, const in
   const int n = axis_last ? cols : rows;
   const int lines = axis_last ? rows : cols;
   if (plan.n != n || plan.elems * plan.threads != n || lpb < 1 || (lpb & (lpb - 1)) != 0 ||
-      lpb * plan.threads > kMaxThreads || planes > 65535) {
+      lpb * plan.threads > max_block_threads(plan.elems) || planes > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long line_stride = axis_last ? cols : 1;
@@ -120,19 +127,15 @@ extern "C" int k3_fft_axis(const void* x, void* y, const void* twiddle, const in
   const float2* t = static_cast<const float2*>(twiddle);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool columns = !axis_last;
+#define LHG_K3_CASE(E)                                                                  \
+  case E:                                                                               \
+    return launch<E>(columns, xc, yc, t, plan, planes, lines, lpb, line_stride, elem_stride, \
+                     plane_stride, inverse, scale, s);
   switch (plan.elems) {
-    case 32: return launch<32>(columns, xc, yc, t, plan, planes, lines, lpb, line_stride,
-                               elem_stride, plane_stride, inverse, scale, s);
-    case 16: return launch<16>(columns, xc, yc, t, plan, planes, lines, lpb, line_stride,
-                               elem_stride, plane_stride, inverse, scale, s);
-    case 8: return launch<8>(columns, xc, yc, t, plan, planes, lines, lpb, line_stride,
-                             elem_stride, plane_stride, inverse, scale, s);
-    case 4: return launch<4>(columns, xc, yc, t, plan, planes, lines, lpb, line_stride,
-                             elem_stride, plane_stride, inverse, scale, s);
-    case 2: return launch<2>(columns, xc, yc, t, plan, planes, lines, lpb, line_stride,
-                             elem_stride, plane_stride, inverse, scale, s);
+    LHG_FFT_KERNEL_ELEMS(LHG_K3_CASE)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef LHG_K3_CASE
 }
 
 extern "C" const char* k3_error_string(int code) {

@@ -15,9 +15,14 @@ K2's three calls of a train step (24 planes ``from_spectrum`` +
 ``per_plane``, AP2POH's 12 planes ``conj_h``, the two-H hat's 12 planes
 field + ``per_plane`` with a product mask); and one K3 pass of
 (12, 1024, 1024) along each axis, beside cuFFT's and a device copy of the
-same bytes.  The differences
-say what each part of the work costs.  An ablated build computes a wrong
-result; nothing but this script loads one.
+same bytes; then, as shipped, K3's passes in turn (one axis twice, the
+two axes chained and independent, ``fft2``, and a train step's 2 ``fft2``
++ 1 adjoint).  The differences say what each part of the work costs.  An
+ablated build computes a wrong result; nothing but this script loads one.
+
+It uses only what the package has offered since K2's redesign, so a copy
+of it times an earlier checkout too: two checkouts run in turns (A, B, B,
+A) in one call compare on one card.
 
 For each build it also prints ptxas' registers and spills, and the blocks
 an SM holds as the launch asks for them, derived from those registers, the
@@ -74,9 +79,9 @@ def _blocks_per_sm(regs, threads, smem):
 @contextlib.contextmanager
 def _kernels_built_with(module, attr, defines):
     """``module.attr`` (a wrapper's kernel loader) loads the build with
-    ``defines`` inside the block."""
+    ``defines`` added to the plan's own inside the block."""
     loader = getattr(module, attr)
-    setattr(module, attr, lambda: loader(defines))
+    setattr(module, attr, lambda plan_defines=(): loader(tuple(plan_defines) + tuple(defines)))
     try:
         yield
     finally:
@@ -263,6 +268,23 @@ def main() -> int:
                                  f"blocks of {lpb * plan.threads} threads an SM")
         print(f"  K3 {_label(defines)}: " + ", ".join(cells) + "; " + "; ".join(occupancy)
               + f" [{card}]", flush=True)
+
+    print("K3 as shipped, passes in turn on the same planes, ms by CUDA events (mean of 50)", flush=True)
+
+    def axis(a, src=None):
+        return fft.fft_axis(x if src is None else src, a, False, 1.0)
+
+    cells = {
+        "-1 then -1": lambda: axis(-1, axis(-1)),
+        "-2 then -2": lambda: axis(-2, axis(-2)),
+        "-1 then -2": lambda: axis(-2, axis(-1)),
+        "-1, -2 independent": lambda: (axis(-1), axis(-2)),
+        "fft2": lambda: fft.fft2(x),
+        # PERF.md's K3 row: a train step's hat and target fft2 and the hat's adjoint
+        "2 fft2 + adjoint": lambda: (fft.fft2(x), fft.fft2(x), fft._transform2(x, True, 1.0)),
+    }
+    print("  K3 " + "; ".join(f"{name} {cuda_ms(fn, iters=50, warmup=5):.4f}" for name, fn in cells.items())
+          + f" [{card}]", flush=True)
     return 0
 
 

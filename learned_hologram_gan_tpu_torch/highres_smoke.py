@@ -35,10 +35,11 @@ runs phase 5 alone, ``--repeats N --sgd --anomaly`` instead prints N
 plain and N remat steps under the default algorithms one by one (``--sgd``:
 SGD at lr 1 and 1e-4; ``--anomaly``: under autograd's anomaly detection).
 
-Each run's K1, K2 and K3 launches are held to what the code makes: none
-at the 1080p and 4K grids (1728 x 3048 and 2880 x 5000 are not powers of
-two, so both the fused K1 path and K3 decline them and ``torch.fft`` runs,
-as the JAX package's ``jnp.fft`` does on its TPU there).
+Each run's K1, K2 and K3 launches are held to what the code makes.  At
+1080p (1728 x 3048) K1 and K2 run on the mixed-radix plan of rp = 1728
+(24 * 24 * 3) and K3 declines the grid (3048 = 8 * 3 * 127 has no plan),
+so its 2-D transforms run ``torch.fft``; the 4K grid (2880 x 5000) runs
+K1 (rp 2880 = 60 * 12 * 4) and K3 (5000 = 50 * 50 * 2) on both axes.
 """
 
 from __future__ import annotations
@@ -57,8 +58,10 @@ HD = dict(rows=1088, cols=1920, pad=320)  # padded 1728 x 3048
 UHD = dict(rows=2176, cols=3840, pad=352, pad_cols=580)  # padded 2880 x 5000
 Q384 = dict(rows=384, cols=384)  # eval_quality's defaults: pad 320, a 1024 x 1024 grid
 FT_TRAIN, FT_VAL, UHD_VAL, Q384_VAL = 4, 2, 2, 8
-NO_KERNEL = dict(k1={}, k2={}, k3=0)
-NO_KERNEL_WHY = "the padded grid is not a power of two: K1's and K3's predicates decline it, torch.fft runs"
+HD_WHY = "K1/K2 on rp 1728; K3 declines the 3048 columns, torch.fft runs its transforms"
+# highres_train_bench runs a warm-up step, --steps 2 timed steps and one more
+# split step: four steps a run
+BENCH_STEPS = 4
 # the sequential and fused 384^2 evaluations: the float32 propagation gate
 # (1e-3 at p99.9 on the stack) moves PSNR by < 1e-3 dB and SSIM by < 1e-5
 SEQ_PSNR_DB, SEQ_SSIM = 1e-3, 1e-5
@@ -134,14 +137,18 @@ def train_1080p(card):
                          ("remat, H cached", ["--cache_h"]), ("no remat, H cached", ["--no_remat", "--cache_h"])):
         _reset()
         r = highres_train_bench.main(["--steps", "2", "--device", "cuda"] + extra)
-        _check_launches(f"1080p GAN step ({label})", _counts(), NO_KERNEL, NO_KERNEL_WHY)
+        want = expected_step_launches("--no_remat" not in extra, k3_grid=False)
+        want = dict(k1={k: BENCH_STEPS * v for k, v in want["k1"].items()},
+                    k2={k: BENCH_STEPS * v for k, v in want["k2"].items()}, k3=0)
+        launches = _counts()
+        _check_launches(f"1080p GAN step ({label})", launches, want, HD_WHY)
         if not all(np.isfinite(v) for v in r["metrics"].values()):
             raise AssertionError(f"1080p GAN step ({label}): non-finite metrics {r['metrics']}")
         split = ", ".join(f"{k} {v:.1f} ms" for k, v in r["split"].items())
         print(f"1080p GAN step ({label}): {r['ms_per_step']:.1f} ms/step (best of 2, CUDA events; "
               f"mean {r['mean_ms']:.1f}), peak {r['peak_gib']:.2f} GiB; one more step split: {split} "
               f"[{card}]", flush=True)
-        runs[label] = r
+        runs[label] = dict(r, launches=launches)
     return runs
 
 
@@ -160,14 +167,16 @@ def finetune_1080p(card, tmp):
         "--device", "cuda",
     ])
     peak = _peak_gib()
-    _check_launches("1080p fine-tune + evaluation", _counts(), NO_KERNEL, NO_KERNEL_WHY)
+    launches = _counts()
+    _check_launches("1080p fine-tune + evaluation", launches, expected_finetune_launches(FT_TRAIN, FT_VAL),
+                    HD_WHY)
     summary = r["evaluation"]["summary"]
     if not np.isfinite([summary["val_PSNR"], summary["val_SSIM"]]).all():
         raise AssertionError(f"1080p fine-tune evaluation: non-finite summary {summary}")
     steps = r["step_s"][1:]  # the first step carries the first call's set-up
     out = dict(steps_per_s=len(steps) / sum(steps), first_step_s=r["step_s"][0], finetune_s=r["finetune_s"],
                eval_ms_per_sample=1e3 * r["evaluation"]["sweep_s"] / FT_VAL, eval_s=r["eval_s"],
-               peak_gib=peak, summary=summary)
+               peak_gib=peak, summary=summary, launches=launches)
     print(f"1080p fine-tune (batch 1): {out['steps_per_s']:.3f} steps/s over steps 2-{FT_TRAIN} (train steps "
           f"alone, device synchronized at each end), first step {out['first_step_s']:.2f} s; the epoch with "
           f"its validation and saves {r['finetune_s']:.2f} s; evaluation (8 planes, H on the fly) "
@@ -193,7 +202,9 @@ def eval_4k(card, tmp, run_dir):
     _reset()
     r = eval_quality.main(argv)
     peak = _peak_gib()
-    _check_launches("4K zero-shot evaluation", _counts(), NO_KERNEL, NO_KERNEL_WHY)
+    launches = _counts()
+    _check_launches("4K zero-shot evaluation", launches, expected_eval_launches(UHD_VAL, 8, True),
+                    "K1 on rp 2880, K3 on 2880 x 5000, one ifft2 a distance")
     s = r["summary"]
     if not np.isfinite([s["val_PSNR"], s["val_SSIM"]] + s["per_plane_PSNR"]).all():
         raise AssertionError(f"4K evaluation: non-finite summary {s}")
@@ -201,7 +212,7 @@ def eval_4k(card, tmp, run_dir):
     if warm["summary"] != s:
         raise AssertionError("the 4K evaluation's second run gives another summary")
     out = dict(ms_per_sample=1e3 * r["sweep_s"] / UHD_VAL, warm_ms_per_sample=1e3 * warm["sweep_s"] / UHD_VAL,
-               peak_gib=peak, summary=s)
+               peak_gib=peak, summary=s, launches=launches)
     print(f"4K zero-shot evaluation (2880 x 5000 grid, sequential, H on the fly, bf16, 8 planes): "
           f"{out['ms_per_sample']:.1f} ms/sample over {UHD_VAL} samples, first call included; "
           f"{out['warm_ms_per_sample']:.1f} ms/sample on a second run; val PSNR {s['val_PSNR']:.4f}, "
@@ -209,9 +220,23 @@ def eval_4k(card, tmp, run_dir):
     return out
 
 
+def expected_finetune_launches(train: int, val: int) -> dict:
+    """finetune_highres's launches at 1080p (K1 and K2, no K3): ``train``
+    non-GAN steps under remat (no validation: its interval is 24 steps),
+    then the evaluation's ``val`` batches of 1 and sample 0's grid, each
+    AP2POH (conj_h) and one from_spectrum stack."""
+    step = expected_step_launches(True, k3_grid=False)
+    recons = val + 1
+    return dict(k1={"conj_h": train * step["k1"]["conj_h"] + recons,
+                    "from_spectrum+per_plane": train * step["k1"]["from_spectrum+per_plane"],
+                    "from_spectrum": recons},
+                k2={k: train * v for k, v in step["k2"].items()}, k3=0)
+
+
 def expected_eval_launches(recons: int, distances: int, sequential: bool) -> dict:
     """The kernel launches of ``recons`` eval_quality reconstructions at a
-    power-of-two grid: AP2POH (K1 conj_h), two fft2 (K3, two passes each),
+    grid K1 and K3 both take (384^2's 1024 x 1024, the portrait 1280 x 768,
+    4K's 2880 x 5000): AP2POH (K1 conj_h), two fft2 (K3, two passes each),
     then the focal stack: one K1 from_spectrum call over every distance,
     or with ``sequential`` one ifft2 per distance (K3 again)."""
     if sequential:
@@ -259,17 +284,18 @@ def eval_384(card, tmp, run_dir):
     return out
 
 
-def expected_step_launches(remat: bool) -> dict:
+def expected_step_launches(remat: bool, k3_grid: bool = True) -> dict:
     """The launches of one default train step (pair batching, the composed
-    reconstruction) at a power-of-two grid: AP2POH (K1 conj_h), the hat's
-    and the target's fft2 (K3, two passes each), the random-distance stack
-    (K1 from_spectrum+per_plane); the backward runs K2 in both modes and
-    the hat fft2's adjoint (K3).  With ``remat`` the backward first runs
-    steps 1-4 again: K1 twice as often, and 4 more K3 passes; K2 as
-    before."""
+    reconstruction) at a grid K1 takes: AP2POH (K1 conj_h), the hat's and
+    the target's fft2 (K3, two passes each, where K3 takes the grid), the
+    random-distance stack (K1 from_spectrum+per_plane); the backward runs
+    K2 in both modes and the hat fft2's adjoint (K3).  With ``remat`` the
+    backward first runs steps 1-4 again: K1 twice as often, and 4 more K3
+    passes; K2 as before.  The non-GAN step of the fine-tune makes the
+    same launches (its critic runs no transform)."""
     k = 2 if remat else 1
     return dict(k1={"conj_h": k, "from_spectrum+per_plane": k},
-                k2={"conj_h": 1, "from_spectrum+per_plane": 1}, k3=6 + 4 * (k - 1))
+                k2={"conj_h": 1, "from_spectrum+per_plane": 1}, k3=(6 + 4 * (k - 1)) if k3_grid else 0)
 
 
 def _remat_inputs(dev):

@@ -46,15 +46,18 @@ from ..utils.normalize import amplitude_normalizor
 
 
 class RGBD2AP(nn.Module):
-    """Stage 1: RGBD (B, 4, H, W) -> (amp, phs), each (B, 3, H, W)."""
+    """Stage 1: RGBD (B, 4, H, W) -> (amp, phs), each (B, 3, H, W).
+    ``fourier`` builds the UNet of FourierBlocks (the JAX package's
+    ``RGBD2AP.fourier``)."""
 
     def __init__(self, amplitude_scaler: float = 1.1, base_features: int = 64,
                  dtype: torch.dtype = torch.float32, remat: bool = False,
-                 polyphase_level0: bool = False):
+                 polyphase_level0: bool = False, fourier: bool = False):
         super().__init__()
         self.amplitude_scaler = amplitude_scaler
         self.unet = UNet(in_channels=4, output_channels=6, base_features=base_features,
-                         dtype=dtype, remat=remat, polyphase_level0=polyphase_level0)
+                         dtype=dtype, remat=remat, polyphase_level0=polyphase_level0,
+                         fourier=fourier)
 
     @full_f32_convs()
     def forward(self, rgbd: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -98,14 +101,15 @@ class AP2POH(nn.Module):
 
 
 class Generator(nn.Module):
-    """``part2(part1(RGBD))`` -> POH phase map; fully convolutional."""
+    """``part2(part1(RGBD))`` -> POH phase map; fully convolutional.
+    ``fourier`` gives stage 1 the fourier UNet (:class:`RGBD2AP`)."""
 
-    def __init__(self, config: GeneratorConfig = GeneratorConfig()):
+    def __init__(self, config: GeneratorConfig = GeneratorConfig(), fourier: bool = False):
         super().__init__()
         self.config = config
         dtype = compute_dtype(config.dtype)
         self.part1 = RGBD2AP(config.amplitude_scaler, config.unet_base_features, dtype, config.remat,
-                             config.polyphase_level0)
+                             config.polyphase_level0, fourier)
         self.part2 = AP2POH(config.kernel_size, config.use_modulation, dtype)
 
     def forward(self, plan: asm.PropagatorPlan, rgbd: torch.Tensor) -> torch.Tensor:
@@ -130,10 +134,20 @@ def generator_apply_fused(
     space-to-depth phase domain), then the 1.1x amplitude / 2*pi phase
     split and stage 2 as the module runs it.  The RGBD input enters the
     UNet in the generator's compute dtype, as the JAX function casts it.
+    A UNet the fast path does not take (the fourier UNet) runs the module's
+    own eval-mode forward, as the JAX function falls back to
+    ``generator.apply``.
     """
-    from ..nn.fused_unet import unet_apply_fused
+    from ..nn.fused_unet import supported, unet_apply_fused
 
     unet = generator.part1.unet
+    if not supported(unet):
+        was_training = generator.training
+        generator.eval()
+        try:
+            return generator(plan, rgbd)
+        finally:
+            generator.train(was_training)
     y = unet_apply_fused(
         unet, rgbd.permute(0, 2, 3, 1).to(unet.dtype), polyphase_level0=polyphase_level0,
     )
@@ -166,7 +180,8 @@ def generator_apply_quant(
     if not supported(unet):
         raise ValueError(
             "generator_apply_quant supports only the standard UNet parameter layout "
-            "(every residual block with its 1x1 shortcut); use the generator's forward instead"
+            "(no fourier/nested blocks, every residual block with its 1x1 shortcut); "
+            "use the generator's forward instead"
         )
     x = rgbd.permute(0, 2, 3, 1)
     if "edges" in qtree:
@@ -183,10 +198,12 @@ def make_generator(
     config: GeneratorConfig,
     seed: int = 0,
     device: str | torch.device = "cuda",
+    fourier: bool = False,
 ) -> Generator:
-    """A :class:`Generator` initialized from ``seed`` on the CPU with the JAX
-    package's scheme, then moved to ``device``, in eval mode."""
-    model = Generator(config)
+    """A :class:`Generator` (with the fourier UNet if asked) initialized
+    from ``seed`` on the CPU with the JAX package's scheme, then moved to
+    ``device``, in eval mode."""
+    model = Generator(config, fourier)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()
 

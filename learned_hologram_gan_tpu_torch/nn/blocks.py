@@ -339,6 +339,30 @@ class ResidualBlock(nn.Module):
         return F.relu(y + x)
 
 
+class FourierBlock(nn.Module):
+    """A spatial :class:`ResidualBlock` plus :class:`ResidualBlock`s on the
+    real and imaginary parts of the 1-D FFT along W, summed (the JAX
+    package's ``FourierBlock``, reference :336-353).  The FFT runs in
+    float32 (``torch.fft``, as the JAX package runs ``jnp.fft``); the
+    inverse's real part joins the sum in the input's dtype.  The children
+    carry flax's auto names: ``ResidualBlock_0`` (spatial), ``_1`` (real),
+    ``_2`` (imaginary)."""
+
+    def __init__(self, in_ch: int, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.ResidualBlock_0 = ResidualBlock(in_ch, features, True, dtype)
+        self.ResidualBlock_1 = ResidualBlock(in_ch, features, True, dtype)
+        self.ResidualBlock_2 = ResidualBlock(in_ch, features, True, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        spatial = self.ResidualBlock_0(x)
+        f = torch.fft.fft(x.float(), dim=-1)  # along W in NCHW
+        fr = self.ResidualBlock_1(f.real.to(x.dtype))
+        fi = self.ResidualBlock_2(f.imag.to(x.dtype))
+        fourier = torch.fft.ifft(torch.complex(fr.float(), fi.float()), dim=-1).real.to(x.dtype)
+        return spatial + fourier
+
+
 def _flax_kernel(conv: nn.Conv2d) -> torch.Tensor:
     """A conv's weight (O, I, kh, kw) in flax's (kh, kw, I, O) layout, as
     a differentiable view."""
@@ -479,7 +503,11 @@ class UNet(nn.Module):
     (``nn/polyphase.py``, exact math) from the same modules' parameters, so
     ``state_dict`` keys and shapes do not change and checkpoints
     interchange; as in the JAX package it applies with ``levels > 1`` and
-    even H and W, and the plain path runs otherwise."""
+    even H and W, and the plain path runs otherwise.
+
+    ``fourier`` makes every block a :class:`FourierBlock` (reference
+    Unet_Fourier :348-353); level 0 then never runs in the phase domain,
+    and ``remat`` wraps the FourierBlocks as it wraps residual blocks."""
 
     def __init__(
         self,
@@ -490,6 +518,7 @@ class UNet(nn.Module):
         dtype: torch.dtype = torch.float32,
         remat: bool = False,
         polyphase_level0: bool = False,
+        fourier: bool = False,
     ):
         super().__init__()
         f = base_features
@@ -497,16 +526,21 @@ class UNet(nn.Module):
         self.dtype = dtype
         self.remat = remat
         self.polyphase_level0 = polyphase_level0
-        self.enc_0 = ResidualBlock(in_channels, f, True, dtype)
+        self.fourier = fourier
+
+        def block(cin, cout):
+            return FourierBlock(cin, cout, dtype) if fourier else ResidualBlock(cin, cout, True, dtype)
+
+        self.enc_0 = block(in_channels, f)
         for i in range(1, levels):
-            setattr(self, f"enc_{i}", ResidualBlock(f * 2 ** (i - 1), f * 2**i, True, dtype))
-        self.bottleneck = ResidualBlock(f * 2 ** (levels - 1), f * 2**levels, True, dtype)
+            setattr(self, f"enc_{i}", block(f * 2 ** (i - 1), f * 2**i))
+        self.bottleneck = block(f * 2 ** (levels - 1), f * 2**levels)
         if levels > 1:
             self.ConvTranspose_0 = PixelShuffleConvTranspose(
                 f * 2**levels, f * 2 ** (levels - 1), dtype
             )
         for i in reversed(range(1, levels)):
-            setattr(self, f"dec_{i}", ResidualBlock(f * 2 ** (i + 1), f * 2**i, True, dtype))
+            setattr(self, f"dec_{i}", block(f * 2 ** (i + 1), f * 2**i))
             if i > 1:
                 setattr(
                     self,
@@ -514,7 +548,7 @@ class UNet(nn.Module):
                     PixelShuffleConvTranspose(f * 2**i, f * 2 ** (i - 1), dtype),
                 )
         setattr(self, f"ConvTranspose_{levels - 1}", PixelShuffleConvTranspose(2 * f, f, dtype))
-        self.dec_0 = ResidualBlock(2 * f, f, True, dtype)
+        self.dec_0 = block(2 * f, f)
         self.Conv_0 = _conv(f, output_channels, 1, dtype)
 
     def _block(self, name: str, x: torch.Tensor, poly: bool = False) -> torch.Tensor:
@@ -524,7 +558,7 @@ class UNet(nn.Module):
 
     def uses_polyphase(self, x: torch.Tensor) -> bool:
         """Whether level 0 runs in the phase domain for input ``x``."""
-        return (self.polyphase_level0 and self.levels > 1
+        return (self.polyphase_level0 and not self.fourier and self.levels > 1
                 and x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0)
 
     def encode_level0(self, x: torch.Tensor, poly: bool) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -570,6 +604,79 @@ class UNet(nn.Module):
         poly = self.uses_polyphase(x)  # level 0 in the phase domain, NHWC, skip kept phase-major
         skip, y = self.encode_level0(x, poly)
         return self.decode_level0(skip, self.inner(y), poly)
+
+
+def MiniUNet(in_channels: int, output_channels: int = 1,
+             dtype: torch.dtype = torch.float32) -> UNet:
+    """2-level, 16-base-feature UNet (reference miniUNet :188-238)."""
+    return UNet(in_channels, output_channels, base_features=16, levels=2, dtype=dtype)
+
+
+class RGBDUNet(nn.Module):
+    """Per-colour variant: three 4-level UNets on (R, D), (G, D), (B, D)
+    (reference RGBD_UNet :318-333).  (N, 4, H, W) input with channels
+    [R, G, B, D]; output channels [amp_r, amp_g, amp_b, phs_r, phs_g, phs_b]."""
+
+    def __init__(self, base_features: int = 64, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        for c in "rgb":
+            setattr(self, f"unet_{c}", UNet(2, 2, base_features=base_features, dtype=dtype))
+
+    def forward(self, rgbd: torch.Tensor) -> torch.Tensor:
+        outs = [getattr(self, f"unet_{c}")(rgbd[:, [i, 3]]) for i, c in enumerate("rgb")]
+        return torch.cat([o[:, :1] for o in outs] + [o[:, 1:] for o in outs], dim=1)
+
+
+class _ResNetBase(nn.Module):
+    """Shared stride-1 ResNet trunk (reference miniResNet / ResNet): a 7x7
+    stem conv, BatchNorm, ReLU, the residual blocks of ``block_plan``
+    ((features, use_1x1conv) each), a 1x1 head and a sigmoid."""
+
+    def __init__(self, in_channels: int, output_channels: int, stem_features: int,
+                 block_plan, stem_kernel: int = 7, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.Conv_0 = _conv(in_channels, stem_features, stem_kernel, dtype)
+        self.BatchNorm_0 = _batch_norm(stem_features)
+        cin = stem_features
+        for i, (feats, use_1x1) in enumerate(block_plan):
+            setattr(self, f"ResidualBlock_{i}", ResidualBlock(cin, feats, use_1x1, dtype))
+            cin = feats
+        self.num_blocks = len(block_plan)
+        self.Conv_1 = _conv(cin, output_channels, 1, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        for i in range(self.num_blocks):
+            y = getattr(self, f"ResidualBlock_{i}")(y)
+        return torch.sigmoid(self.Conv_1(y))
+
+
+def MiniResNet(in_channels: int, output_channels: int = 3,
+               dtype: torch.dtype = torch.float32) -> _ResNetBase:
+    """4 residual blocks at 32/64 channels (reference :106-138)."""
+    return _ResNetBase(in_channels, output_channels, 32,
+                       [(32, False), (32, False), (64, True), (64, False)], dtype=dtype)
+
+
+def ResNet(in_channels: int, output_channels: int = 3,
+           dtype: torch.dtype = torch.float32) -> _ResNetBase:
+    """8 residual blocks, 64 -> 512 channels (reference :141-177)."""
+    plan = [(64, False), (64, False), (128, True), (128, False),
+            (256, True), (256, False), (512, True), (512, False)]
+    return _ResNetBase(in_channels, output_channels, 64, plan, dtype=dtype)
+
+
+class ResNetPOH(nn.Module):
+    """:func:`ResNet` with its output scaled to a [0, 2*pi] phase
+    (reference :180-185); the trunk carries flax's auto name."""
+
+    def __init__(self, in_channels: int, output_channels: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self._ResNetBase_0 = ResNet(in_channels, output_channels, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return 2.0 * np.pi * self._ResNetBase_0(x)
 
 
 @torch.no_grad()

@@ -83,8 +83,10 @@ def _max_pool(y: torch.Tensor) -> torch.Tensor:
 
 def supported(unet) -> bool:
     """True for a port :class:`~.blocks.UNet` whose residual blocks all
-    have their 1x1 shortcut (every UNet the port builds)."""
-    return isinstance(unet, UNet) and all(
+    have their 1x1 shortcut (every UNet the port builds) and that is not a
+    fourier UNet (its FourierBlocks nest the residual blocks one deeper,
+    as the JAX package's ``supported`` tells from the tree)."""
+    return isinstance(unet, UNet) and not unet.fourier and all(
         m.Conv_2 is not None for m in unet.modules() if isinstance(m, ResidualBlock)
     )
 

@@ -15,7 +15,10 @@ Two branches, as in the JAX package:
   * composable: pad -> :func:`_fft2` -> multiply -> :func:`_ifft2` -> crop,
     for grids K1 does not support, and the spectrum primitives.  ``_fft2``
     and ``_ifft2`` are ``ops/cuda/fft`` (kernel K3 on a CUDA tensor,
-    ``torch.fft`` on a CPU tensor or a grid K3 rejects).
+    ``torch.fft`` on a CPU tensor or a grid K3 rejects) under the default
+    FFT backend; :func:`set_fft_backend` takes the JAX package's names
+    (``"xla"``: ``torch.fft``; ``"mxu"``: ``ops/mxu_fft``; both without
+    the fused branch; ``"pallas"``: the kernels, refusing a CPU tensor).
 A plan built with ``cache_h=False`` keeps no transfer-function stack: each
 primitive computes the H it needs from the float32 w-grid, bit for bit the
 cached values (the memory lever at 1080p and 4K).  ``sequential=True`` in
@@ -322,24 +325,69 @@ def _spectrum_mean(plan: PropagatorPlan, x: torch.Tensor) -> torch.Tensor:
     return collectives.reduce_from_ranks(torch.mean(x), group) / size
 
 
-def _fft2(x: torch.Tensor, plan: Optional[PropagatorPlan] = None) -> torch.Tensor:
+# FFT backend, with the JAX package's names (its asm.set_fft_backend):
+#   "auto" (default): K3 (ops/cuda/fft.py) on a CUDA tensor whose grid
+#       fft.supported accepts, torch.fft on a CPU tensor or another grid;
+#       the fused branch (K1) wherever spectral.supported accepts the grid;
+#   "pallas": the same on a CUDA tensor; a CPU tensor raises (K3 and K1 run
+#       only on the card, and nothing runs torch.fft under their name);
+#   "xla": torch.fft, and the composable branch only (no K1), as the JAX
+#       package's "xla" takes no fused Pallas path;
+#   "mxu": the four-step GEMM FFT of ops/mxu_fft.py, composable branch only.
+# A spatial binding (PropagatorPlan.with_spatial) goes first, whatever the
+# backend: the pencil FFT.
+_FFT_BACKEND = "auto"
+
+
+def set_fft_backend(name: str) -> None:
+    global _FFT_BACKEND
+    if name not in ("auto", "xla", "mxu", "pallas"):
+        raise ValueError(f"unknown fft backend {name!r}")
+    _FFT_BACKEND = name
+
+
+def get_fft_backend() -> str:
+    return _FFT_BACKEND
+
+
+def _resolved_backend(device: Optional[torch.device] = None) -> str:
+    """The backend an FFT on ``device`` takes: "auto" is "pallas" (K3) on a
+    CUDA device and "xla" (torch.fft) elsewhere."""
+    if _FFT_BACKEND == "auto":
+        return "pallas" if device is not None and torch.device(device).type == "cuda" else "xla"
+    return _FFT_BACKEND
+
+
+def _need_card(device: torch.device) -> None:
+    if torch.device(device).type != "cuda":
+        raise ValueError("the 'pallas' FFT backend runs kernels K1 and K3, which need a CUDA "
+                         f"tensor, got {device}; use set_fft_backend('auto') or 'xla' on the CPU")
+
+
+def _fft2_any(x: torch.Tensor, plan: Optional[PropagatorPlan], inverse: bool) -> torch.Tensor:
     if plan is not None and plan.spatial is not None:
         from ..parallel import fft as pfft
 
-        return pfft.pencil_fft2(x, _spatial_axis(plan)[0])
+        return pfft.pencil_fft2(x, _spatial_axis(plan)[0], inverse=inverse)
+    if _FFT_BACKEND == "mxu":
+        from . import mxu_fft
+
+        return mxu_fft.fft2_mxu(x, inverse=inverse)
+    if _FFT_BACKEND == "xla":
+        return torch.fft.ifft2(x) if inverse else torch.fft.fft2(x)
+    if _FFT_BACKEND == "pallas":
+        _need_card(x.device)
     from .cuda import fft
 
-    return fft.fft2(x)
+    return fft.ifft2(x) if inverse else fft.fft2(x)
+
+
+def _fft2(x: torch.Tensor, plan: Optional[PropagatorPlan] = None) -> torch.Tensor:
+    return _fft2_any(x, plan, False)
 
 
 def _ifft2(x: torch.Tensor, plan: Optional[PropagatorPlan] = None) -> torch.Tensor:
-    if plan is not None and plan.spatial is not None:
-        from ..parallel import fft as pfft
-
-        return pfft.pencil_fft2(x, _spatial_axis(plan)[0], inverse=True)
-    from .cuda import fft
-
-    return fft.ifft2(x)
+    return _fft2_any(x, plan, True)
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +398,10 @@ def _ifft2(x: torch.Tensor, plan: Optional[PropagatorPlan] = None) -> torch.Tens
 def _fused_ok(plan: PropagatorPlan) -> bool:
     if plan.spatial is not None:
         return False  # the pencil FFT composes the spatial path instead
+    if _FFT_BACKEND in ("xla", "mxu"):
+        return False
+    if _FFT_BACKEND == "pallas":
+        _need_card(plan.w_grid.device)
     from .cuda import spectral
 
     return spectral.supported(plan.padded_rows, plan.padded_cols)

@@ -5,10 +5,12 @@ nvcc alone (no PyTorch headers, so a build takes seconds) into
 ``_build/<name>-<hash>.so``, where the hash covers the source, the shared
 headers (``csrc/*.cuh``) and the flags: a second run with the same sources
 loads the existing library.  The build happens at first use, never at
-import; :func:`build_libraries` starts one nvcc per source at once.
+import; :func:`build_jobs` runs one nvcc per (source, macros) pair, as many
+at once as the host has cores.
 ``defines`` adds preprocessor macros (and so a library of another hash):
-the wrappers load the plain build; only ``fft_ablation.py`` asks for
-others.
+K1's and K3's wrappers load one library for the power-of-two FFT plans and
+one per E of the others (``fft_plan.build_defines``); ``fft_ablation.py``
+and ``k5_ablation.py`` ask for measurement builds.
 """
 
 from __future__ import annotations
@@ -76,46 +78,75 @@ def _target(name: str, defines: Sequence[str]) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build_libraries(names: Sequence[str], defines: Sequence[str] = ()) -> Dict[str, BuildResult]:
-    """Compile each ``csrc/<name>.cu`` whose library of the same hash does
-    not exist yet, one nvcc process per source, all started together."""
-    results: Dict[str, BuildResult] = {}
-    running = []
-    for name in names:
+def build_jobs(jobs: Sequence[Tuple[str, Sequence[str]]]) -> Dict[Tuple[str, Tuple[str, ...]], BuildResult]:
+    """Compile each ``(name, defines)``: ``csrc/<name>.cu`` with the macros
+    ``defines``, unless a library of the same hash exists; one nvcc process
+    per job, as many at a time as the host has cores.  Keyed by
+    ``(name, tuple(defines))``."""
+    results: Dict[Tuple[str, Tuple[str, ...]], BuildResult] = {}
+    pending = []
+    for name, defines in jobs:
+        key = (name, tuple(defines))
+        if key in results or any(key == p[0] for p in pending):
+            continue
         target = _target(name, defines)
         if target.exists():
             log = target.with_suffix(".log")
-            results[name] = BuildResult(target, 0.0, True, log.read_text() if log.exists() else "")
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        source = CSRC_DIR / f"{name}.cu"
-        proc = subprocess.Popen(
-            [find_nvcc(), *_flags(defines), "-o", tmp, str(source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        running.append((name, source, target, tmp, proc, time.perf_counter()))
+            results[key] = BuildResult(target, 0.0, True, log.read_text() if log.exists() else "")
+        else:
+            pending.append((key, target))
+    limit = os.cpu_count() or 1
+    running = []
     failures = []
+
+    def finish(job):
+        key, source, target, tmp, proc, start = job
+        log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {source} {' '.join(key[1])} (exit {proc.returncode}):\n{log}")
+            return
+        target.with_suffix(".log").write_text(log)
+        os.replace(tmp, target)
+        results[key] = BuildResult(target, time.perf_counter() - start, False, log)
+
     try:
-        for name, source, target, tmp, proc, start in running:
-            log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
-            if proc.returncode != 0:
-                failures.append(f"nvcc failed on {source} (exit {proc.returncode}):\n{log}")
-                continue
-            target.with_suffix(".log").write_text(log)
-            os.replace(tmp, target)
-            results[name] = BuildResult(target, time.perf_counter() - start, False, log)
+        for key, target in pending:
+            while len(running) >= limit:
+                done = next((job for job in running if job[4].poll() is not None), None)
+                if done is None:
+                    time.sleep(0.05)
+                    continue
+                running.remove(done)
+                finish(done)
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            source = CSRC_DIR / f"{key[0]}.cu"
+            proc = subprocess.Popen(
+                [find_nvcc(), *_flags(key[1]), "-o", tmp, str(source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            running.append((key, source, target, tmp, proc, time.perf_counter()))
+        while running:
+            finish(running.pop(0))
     finally:
         for _, _, _, tmp, proc, _ in running:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        for _, _, _, tmp, _, _ in running:
             if os.path.exists(tmp):
                 os.remove(tmp)
     if failures:
         raise RuntimeError("\n".join(failures))
     return results
+
+
+def build_libraries(names: Sequence[str], defines: Sequence[str] = ()) -> Dict[str, BuildResult]:
+    """Compile each ``csrc/<name>.cu`` with ``defines`` whose library of the
+    same hash does not exist yet, one nvcc process per source."""
+    built = build_jobs([(name, defines) for name in names])
+    return {name: built[(name, tuple(defines))] for name in names}
 
 
 def build_library(name: str, defines: Sequence[str] = ()) -> BuildResult:

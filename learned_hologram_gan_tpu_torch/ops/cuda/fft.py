@@ -39,12 +39,15 @@ def _pick_lpb(plan: fft_plan.FftPlan, columns: bool) -> Optional[int]:
     return fft_plan.lines_per_block(plan, 8 if columns else 1, plan.buffer * 8)
 
 
+@functools.lru_cache(maxsize=None)
 def supported_length(n: int) -> bool:
-    """True if K3 transforms lines of length ``n``: a power of two from 2 to
-    16384, whose plan fits a block along either axis."""
-    if n < 2 or n & (n - 1) or n > fft_plan.MAX_LENGTH:
+    """True if K3 transforms lines of length ``n``: n = 2^a 3^b 5^c from 2
+    to 16384 that has a plan (:func:`.fft_plan.make_plan`; every power of
+    two has one) whose block fits along either axis."""
+    try:
+        plan = fft_plan.make_plan(n)
+    except ValueError:
         return False
-    plan = fft_plan.make_plan(n)
     return _pick_lpb(plan, False) is not None and _pick_lpb(plan, True) is not None
 
 
@@ -99,7 +102,7 @@ def fft_axis(x: torch.Tensor, axis: int, inverse: bool, scale: float) -> torch.T
     x = x.contiguous()
     y = torch.empty_like(x)
     plan, ints, tw = fft_plan.device_plan(n, x.device)
-    fn, err_str = _kernel_fn()
+    fn, err_str = _kernel_fn(fft_plan.build_defines(plan))
     code = fn(
         x.data_ptr(), y.data_ptr(), tw.data_ptr(), ints.ctypes.data,
         planes, rows, cols, int(axis == -1), _pick_lpb(plan, axis == -2), int(inverse),

@@ -59,13 +59,17 @@ def _pick_cpb(plan: fft_plan.FftPlan, keep_spectrum: bool) -> Optional[int]:
     return fft_plan.lines_per_block(plan, 8, values * 8)
 
 
+@functools.lru_cache(maxsize=None)
 def supported(rp: int, cp: int) -> bool:
-    """True if K1 and K2 handle a (rp, cp) padded grid: rp a power of two
-    whose block fits with the second array kept (every mode then fits), any
-    cp (a ragged last block is masked)."""
-    if rp < 2 or rp & (rp - 1) or rp > fft_plan.MAX_LENGTH:
+    """True if K1 and K2 handle a (rp, cp) padded grid: rp a length with an
+    FFT plan (:func:`.fft_plan.make_plan`: n = 2^a 3^b 5^c up to 16384,
+    every power of two) whose block fits with the second array kept (every
+    mode then fits), any cp (a ragged last block is masked)."""
+    try:
+        plan = fft_plan.make_plan(rp)
+    except ValueError:
         return False
-    return _pick_cpb(fft_plan.make_plan(rp), True) is not None
+    return _pick_cpb(plan, True) is not None
 
 
 def _unpack(cfg: Cfg):
@@ -186,8 +190,8 @@ def _launch(adjoint: bool, x: torch.Tensor, wl2, dists, mask, cfg: Cfg) -> torch
         if t is not None and t.device != x.device:
             raise ValueError("propagate_planes: all tensors must be on one device")
     out = torch.empty(out_shape, dtype=torch.complex64, device=x.device)
-    k1, k2, err_str = _kernel_fns()
     plan, ints, tw = fft_plan.device_plan(rp, x.device)
+    k1, k2, err_str = _kernel_fns(fft_plan.build_defines(plan))
     code = (k2 if adjoint else k1)(
         x.data_ptr(), out.data_ptr(), wl2.data_ptr(), dists.data_ptr(),
         None if mask is None else mask.data_ptr(), tw.data_ptr(), ints.ctypes.data,

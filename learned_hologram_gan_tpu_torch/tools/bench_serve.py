@@ -9,9 +9,12 @@ localhost after one warm-up request, and records:
 
 * wire POH/s: what the client sees end to end, f32 replies, then u8 ones
   (a quarter of the egress) on the same server;
-* ``mean_batch_ms`` (``/healthz``, over the f32 drive and its warm-up): the
-  wall time of one fused batch inside the server, host<->device copies
-  included, and the device POH/s it implies.
+* ``mean_batch_ms``: the wall time of one fused batch inside the server,
+  host<->device copies included, over the timed f32 requests alone: the
+  change of ``/healthz``'s ``batch_ms_total`` over the change of its
+  ``batches``, read after the warm-up request and after the last one (the
+  warm-up batch, which may carry first-call set-up, left out), and the
+  device POH/s it implies.
 
 The RGBD batch is the dataset's train samples under ``--calib_data`` where
 its ``.bin`` files exist, else seeded random RGBD.  Writes one
@@ -86,20 +89,31 @@ def _post(port, body, batch, wire_quant=None):
     return data
 
 
-def drive(port, rgbd, reqs, wire_quant=None):
-    """One warm-up request, then ``reqs`` sequential batch requests;
-    returns (wire POH/s, the /healthz dict after them)."""
-    body = np.ascontiguousarray(rgbd, np.float32).tobytes()
-    _post(port, body, rgbd.shape[0], wire_quant)
-    t0 = time.perf_counter()
-    for _ in range(reqs):
-        _post(port, body, rgbd.shape[0], wire_quant)
-    dt = time.perf_counter() - t0
+def _healthz(port) -> dict:
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
     conn.request("GET", "/healthz")
     health = json.loads(conn.getresponse().read())
     conn.close()
-    return reqs * rgbd.shape[0] / dt, health
+    return health
+
+
+def drive(port, rgbd, reqs, wire_quant=None):
+    """One warm-up request, then ``reqs`` sequential batch requests;
+    returns (wire POH/s, the /healthz dict after them, the mean batch ms
+    of the timed requests' batches alone)."""
+    body = np.ascontiguousarray(rgbd, np.float32).tobytes()
+    _post(port, body, rgbd.shape[0], wire_quant)
+    before = _healthz(port)
+    t0 = time.perf_counter()
+    for _ in range(reqs):
+        _post(port, body, rgbd.shape[0], wire_quant)
+    dt = time.perf_counter() - t0
+    after = _healthz(port)
+    batches = after["batches"] - before["batches"]
+    if batches < 1:
+        raise RuntimeError(f"the server counted {batches} batches over {reqs} requests")
+    mean_ms = (after["batch_ms_total"] - before["batch_ms_total"]) / batches
+    return reqs * rgbd.shape[0] / dt, after, mean_ms
 
 
 def _samples(args, n):
@@ -156,10 +170,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         log_path = os.path.join(work, f"server_{label}.log")
         proc = start_server(args, args.port, mode, calib_path, qtree_path, log_path)
         try:
-            wire_rate, health = drive(args.port, rgbd, args.reqs)
-            mean_ms = health["mean_batch_ms"]  # f32-wire drive only
+            wire_rate, health, mean_ms = drive(args.port, rgbd, args.reqs)  # f32-wire drive
+            mean_ms = round(mean_ms, 3)
             # u8 phase replies on the same server: a quarter of the egress
-            wire_rate_u8, _ = drive(args.port, rgbd, args.reqs, wire_quant="u8")
+            wire_rate_u8, _, _ = drive(args.port, rgbd, args.reqs, wire_quant="u8")
             summary[label] = {
                 "wire_poh_per_s": round(wire_rate, 2),
                 "wire_poh_per_s_u8": round(wire_rate_u8, 2),

@@ -301,8 +301,11 @@ def make_handler(service: PohService):
                 "uptime_s": round(time.time() - s["started"], 1),
                 "requests": s["requests"],
                 "batches": s["batches"],
-                # wall time of one fused batch incl. host<->device transfer
+                # wall time of one fused batch incl. host<->device transfer,
+                # and their sum (a client's difference of two readings
+                # times the batches between them)
                 "mean_batch_ms": round(s["batch_ms_total"] / batches, 2),
+                "batch_ms_total": round(s["batch_ms_total"], 3),
                 "rows": service.rows, "cols": service.cols,
                 "buckets": list(service.buckets),
                 "quantize": service.quantize,

@@ -1,5 +1,5 @@
-"""Small utilities: field normalizers, FFT-friendly pads, PNG output, seeding
-and the reference's parity helpers."""
+"""Small utilities: field normalizers, FFT-friendly pads, PNG output, seeding,
+the reference's parity helpers, the device timer and the profiler."""
 
 from .fftlen import good_fft_pads, is_smooth, next_fast_len
 from .misc import (
@@ -11,19 +11,25 @@ from .misc import (
     unzip_file,
 )
 from .normalize import amplitude_normalizor, tensor_normalizor_2d
+from .profiling import annotate, profile_op, trace
 from .seed import set_seed
+from .timer import device_timer
 
 __all__ = [
     "amplitude_normalizor",
+    "annotate",
     "complex_plain",
+    "device_timer",
     "devices_info",
     "good_fft_pads",
     "is_smooth",
     "next_fast_len",
     "num_devices",
     "phase_tensor_generator",
+    "profile_op",
     "set_seed",
     "tensor_normalizor_2d",
+    "trace",
     "try_device",
     "unzip_file",
 ]

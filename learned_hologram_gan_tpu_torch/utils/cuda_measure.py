@@ -146,8 +146,10 @@ def check_rel(name, kr, ki, rr, ri, max_tol=MAX_REL_TOL, p999_tol=P999_REL_TOL):
 
 def profile_kernels(label, fn, card, top=6):
     """torch.profiler over one call of ``fn``: its wall time, the device
-    time of its kernels (CUPTI's own overhead records left out), the
-    device's busy share of the wall, and the most expensive kernels."""
+    time of its kernels (CUPTI's own overhead records left out) beside the
+    kernel launches traced (fewer kernel events than launches: the profiler
+    lost device events), the device's busy share of the wall, and the most
+    expensive kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -165,9 +167,10 @@ def profile_kernels(label, fn, card, top=6):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and dev_us(e) > 0 and e.key not in overhead]
     total_ms = sum(dev_us(e) for e in kernels) / 1e3
+    launches = sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
     print(f"profiled {label}: wall {wall_ms:.1f} ms, kernels {total_ms:.1f} ms in "
-          f"{sum(e.count for e in kernels)} launches, device busy {100 * total_ms / wall_ms:.1f} % "
-          f"of the wall [{card}]", flush=True)
+          f"{sum(e.count for e in kernels)} kernel events ({launches} launches traced), device busy "
+          f"{100 * total_ms / wall_ms:.1f} % of the wall [{card}]", flush=True)
     for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
         print(f"  {dev_us(e) / 1e3:9.2f} ms {100 * dev_us(e) / 1e3 / total_ms:5.1f} % x{e.count:<6d} "
               f"{e.key[:100]}", flush=True)

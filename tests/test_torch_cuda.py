@@ -28,17 +28,28 @@ import torch
 from learned_hologram_gan_tpu_torch import card_check, fused_smoke
 from learned_hologram_gan_tpu_torch.config import OpticsConfig
 from learned_hologram_gan_tpu_torch.ops import asm
-from learned_hologram_gan_tpu_torch.ops.cuda import conv_block, fft, spectral, transfer
+from learned_hologram_gan_tpu_torch.ops.cuda import conv_block, fft, fft_plan, spectral, transfer
 
 pytestmark = pytest.mark.cuda
 
 MAX_REL, P999_REL = 1e-4, 1e-5
 
 
+@pytest.fixture(scope="module")
+def _fft_libraries():
+    """K1's and K3's libraries, every FFT plan's, built in parallel once
+    (each mixed-radix E is a library of its own, fft_plan.build_defines)."""
+    from learned_hologram_gan_tpu_torch.ops.cuda import build
+
+    build.build_jobs([(name, d) for name in (spectral.KERNEL_NAME, fft.KERNEL_NAME)
+                      for d in fft_plan.all_build_defines()])
+
+
 @pytest.fixture
-def device():
+def device(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    request.getfixturevalue("_fft_libraries")
     return torch.device("cuda")
 
 
@@ -64,9 +75,10 @@ MODES = {
 }
 
 
-def _k1_case(device, rows, cols, pad, batch, mode, seed=0):
+def _k1_case(device, rows, cols, pad, batch, mode, seed=0, pad_cols=None):
     conj_h, num_d, from_spectrum, per_plane, override = MODES[mode]
-    optics = OpticsConfig(rows=rows, cols=cols, pad_size=pad, filter_radius_coefficient=0.45)
+    optics = OpticsConfig(rows=rows, cols=cols, pad_size=pad, filter_radius_coefficient=0.45,
+                          pad_cols_override=pad_cols)
     plan = asm.make_plan(optics, distances=np.linspace(4e-4, 1e-3, 3 if per_plane else num_d),
                          device=device)
     rng = np.random.default_rng(seed)
@@ -142,6 +154,49 @@ def test_k2_matches_autograd_through_plain_version(device, rows, cols, pad, batc
     assert_rel_close(*got, *want)
 
 
+# (rows, cols, pad, batch, pad_cols): padded rows rp of lengths that are
+# not powers of two, one mixed-radix plan each: 12 (E = 12, one pass), 96
+# (24 * 4), 384 (48 * 8), 768 (48 * 16), the portrait 1280 (40 * 8 * 4;
+# 640 x 384 at pads 320 / 192, the 1280 x 768 grid), 1728 (1080p's rp; 24 *
+# 24 * 3), 2880 (60 * 12 * 4) and 5000 (50 * 50 * 2), with ragged column counts
+GRIDS_MIXED = [
+    (8, 8, 2, 2, 3),
+    (40, 23, 28, 1, 5),
+    (256, 100, 64, 1, 14),
+    (384, 64, 192, 1, 100),
+    (640, 384, 320, 1, 192),
+    (1080, 40, 324, 1, 300),
+    (2000, 16, 440, 1, 200),
+    (4000, 8, 500, 1, 100),
+]
+
+
+@pytest.mark.parametrize("rows,cols,pad,batch,pad_cols", GRIDS_MIXED)
+@pytest.mark.parametrize("mode", list(MODES))
+def test_k1_k2_mixed_radix_match_plain_versions(device, rows, cols, pad, batch, pad_cols, mode):
+    """K1, and K2 through its wrapper, on grids whose padded row count is a
+    2*3*5-smooth length other than a power of two, against the plain
+    versions."""
+    args = _k1_case(device, rows, cols, pad, batch, mode, pad_cols=pad_cols)
+    assert spectral.supported(args[-1][5], args[-1][6])
+    before = spectral.row_pass.launches
+    kr, ki = spectral.propagate_planes(*args)
+    torch.cuda.synchronize()
+    assert spectral.row_pass.launches == before + 1
+    assert_rel_close(kr, ki, *spectral.propagate_planes_reference(*args))
+    del kr, ki
+    fr, fi, wl2, dists, mask, cfg = args
+    rng = np.random.default_rng(2)
+    shape = (fr.shape[0], cfg[4], rows, cols)
+    gr = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+    gi = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+    before = spectral.row_adjoint.launches
+    kr, ki = spectral._adjoint_cuda(gr, gi, wl2, dists, mask, cfg)
+    torch.cuda.synchronize()
+    assert spectral.row_adjoint.launches == before + 1
+    assert_rel_close(kr, ki, *spectral.propagate_planes_adjoint_reference(gr, gi, wl2, dists, mask, cfg))
+
+
 @pytest.mark.parametrize("shape", [(12, 1024, 1024), (2, 3, 64, 32), (5, 2, 8)])
 @pytest.mark.parametrize("inverse", [False, True], ids=["fft2", "ifft2"])
 def test_k3_matches_torch_fft(device, shape, inverse):
@@ -165,10 +220,14 @@ def test_k3_matches_torch_fft(device, shape, inverse):
 
 
 K3_LENGTHS = [2**k for k in range(1, 15)]
+# every other 2*3*5-smooth length up to 16384 that K3 takes: each mixed-radix
+# plan (fft_plan.MIXED_ELEMS, 1 to 9 passes); pure Python, the same on every host
+K3_MIXED_LENGTHS = [n for n in range(2, fft_plan.MAX_LENGTH + 1)
+                    if n & (n - 1) and fft_plan.is_smooth(n) and fft.supported_length(n)]
 
 
 @pytest.mark.parametrize("axis", [-1, -2])
-@pytest.mark.parametrize("n", K3_LENGTHS)
+@pytest.mark.parametrize("n", K3_LENGTHS + K3_MIXED_LENGTHS)
 def test_k3_axis_matches_torch_fft(device, n, axis):
     """One K3 pass at every length it takes, along each axis, forward and
     inverse (scale 1/n), on 3 planes of 37 lines: a count no block's lines
@@ -188,7 +247,7 @@ def test_k3_axis_matches_torch_fft(device, n, axis):
     assert_rel_close(yi.real, yi.imag, want.real, want.imag)
 
 
-@pytest.mark.parametrize("n", K3_LENGTHS)
+@pytest.mark.parametrize("n", K3_LENGTHS + [768, 1280, 1728, 2880, 5000])
 def test_k3_fft2_backward_matches_torch_fft(device, n):
     """fft2 and ifft2 through K3 with their backward, on (3, n, 64) planes."""
     rng = np.random.default_rng(n + 1)
@@ -212,7 +271,7 @@ def test_k3_fft2_backward_matches_torch_fft(device, n):
 def test_kernels_raise_instead_of_falling_back(device):
     """A CUDA tensor the kernels do not take raises; it never takes a plain
     version."""
-    args = _k1_case(device, 24, 24, 5, 1, "stack")  # 34 x 34: not a power of two
+    args = _k1_case(device, 24, 24, 5, 1, "stack")  # 34 x 34: 34 = 2 * 17, no plan
     with pytest.raises(ValueError):
         spectral.propagate_planes(*args)
     fr, fi, wl2, dists, mask, cfg = args
@@ -220,7 +279,7 @@ def test_kernels_raise_instead_of_falling_back(device):
     with pytest.raises(ValueError):
         spectral.row_adjoint(g, wl2, dists, mask, cfg)  # K2 on the same grid
     with pytest.raises(ValueError):
-        fft.fft_axis(torch.zeros((2, 48, 64), dtype=torch.complex64, device=device), -2, False, 1.0)
+        fft.fft_axis(torch.zeros((2, 14, 64), dtype=torch.complex64, device=device), -2, False, 1.0)
     with pytest.raises(ValueError):
         fft.fft2(torch.zeros((2, 64, 64), dtype=torch.complex128, device=device))
 

@@ -18,6 +18,12 @@ shared-memory banks (8-byte accesses: a half-warp's 16 lanes must fall on
 16 distinct bank pairs), and the wrappers' predicates to the lengths and
 grids the radix-2 kernels took.
 
+The mixed-radix plans (lengths 2^a 3^b 5^c that are not powers of two)
+are emulated the same way: their register DFTs (radix 3 and 5 by their
+direct formulas, composites as P-point DFTs, the kernel's compile-time
+twiddles w_R^(n1 k2), then M-point DFTs), the division by Ns as
+(x * magic) >> shift, and a bank model that states their bound.
+
 Tolerance: float32 FFTs of up to 16384 points against float64 ``np.fft``,
 <= 1e-5 of max |ref| (the rounding grows as log2 n, ~1e-6 here); K1's row
 pass and K2's row adjoint against their plain versions at the card tests'
@@ -41,6 +47,9 @@ from learned_hologram_gan_tpu_torch.ops import asm
 from learned_hologram_gan_tpu_torch.ops.cuda import fft, fft_plan, spectral
 
 LENGTHS = [2**k for k in range(1, 15)]
+# lengths of mixed-radix plans: small ones for the tests, the portrait grid
+# (1280 x 768), 1080p's rp (1728) and the 4K grid's rows (2880)
+MIXED_LENGTHS = [6, 12, 24, 48, 96, 384, 768, 1280, 1728, 2880]
 CSRC = Path(spectral.__file__).resolve().parents[2] / "csrc"
 # the constants of the kernel's register DFTs, w_32^q = cos - i sin of
 # 2 pi q / 32 for q < 16, rounded to float32 (q = 8, -i, exact)
@@ -49,8 +58,8 @@ DFT_SIN = np.sin(2 * np.pi * np.arange(16) / 32).astype(np.float32)
 DFT_COS[8] = 0.0
 
 
-def _dft(a):
-    """The kernel's dft<R>: radix-2 decimation in frequency over the last
+def _dft_pow2(a):
+    """The kernel's dft_pow2: radix-2 decimation in frequency over the last
     axis, twiddles w_32^q from the float32 constants, bit-reversed result
     renamed into natural order."""
     a = a.copy()
@@ -70,17 +79,94 @@ def _dft(a):
     return a[..., rev]
 
 
+def taylor_cos_sin(q, r):
+    """fft_hopper.cuh:make_root_table, transcribed: (cos, sin)(2 pi q / r) by
+    the Taylor series in double, the angle in (-pi, pi], rounded to float32."""
+    qq = q - r if 2 * q > r else q
+    x = 2.0 * 3.14159265358979323846 * qq / r
+    ts, tc, s_, c_ = x, 1.0, x, 1.0
+    for k in range(1, 30):
+        ts *= -x * x / ((2 * k) * (2 * k + 1))
+        s_ += ts
+        tc *= -x * x / ((2 * k - 1) * (2 * k))
+        c_ += tc
+    return np.float32(c_), np.float32(s_)
+
+
+def _mul_root(d, q, r):
+    """fft_hopper.cuh:mul_root: d * w_r^q, the quarter turns exact."""
+    if q == 0:
+        return d
+    if 2 * q == r:
+        return -d
+    if 4 * q == r:
+        return (d * np.complex64(-1j)).astype(np.complex64)
+    if 4 * q == 3 * r:
+        return (d * np.complex64(1j)).astype(np.complex64)
+    c, s_ = taylor_cos_sin(q, r)
+    return (d * np.complex64(complex(c, -s_))).astype(np.complex64)
+
+
+S3 = np.float32(np.sin(2 * np.pi / 3))
+C5 = (np.float32(np.cos(2 * np.pi / 5)), np.float32(np.cos(4 * np.pi / 5)))
+S5 = (np.float32(np.sin(2 * np.pi / 5)), np.float32(np.sin(4 * np.pi / 5)))
+
+
+def _dft(a):
+    """The kernel's dft_regs over the last axis, natural order in and out:
+    powers of two by _dft_pow2, 3 and 5 by their direct formulas, any
+    other R = P M (P = 5, else 3) as P-point DFTs at stride M, the twiddles
+    w_R^(n1 k2), then M-point DFTs on contiguous blocks, renamed."""
+    size = a.shape[-1]
+    if size & (size - 1) == 0:
+        return _dft_pow2(a)
+    a = a.astype(np.complex64)
+    mi = np.complex64(-1j)
+    if size == 3:
+        s_, d = a[..., 1] + a[..., 2], a[..., 1] - a[..., 2]
+        m = a[..., 0] - np.float32(0.5) * s_
+        return np.stack([a[..., 0] + s_, m + mi * (S3 * d), m - mi * (S3 * d)], axis=-1)
+    if size == 5:
+        s14, d14 = a[..., 1] + a[..., 4], a[..., 1] - a[..., 4]
+        s23, d23 = a[..., 2] + a[..., 3], a[..., 2] - a[..., 3]
+        m1 = a[..., 0] + C5[0] * s14 + C5[1] * s23
+        m2 = a[..., 0] + C5[1] * s14 + C5[0] * s23
+        n1 = S5[0] * d14 + S5[1] * d23
+        n2 = S5[1] * d14 - S5[0] * d23
+        return np.stack([a[..., 0] + s14 + s23, m1 + mi * n1, m2 + mi * n2, m2 - mi * n2,
+                         m1 - mi * n1], axis=-1)
+    p = 5 if size % 5 == 0 else 3
+    m = size // p
+    a = a.copy()
+    for n1 in range(m):
+        t = _dft(a[..., [n1 + m * n2 for n2 in range(p)]])
+        for k2 in range(p):
+            a[..., n1 + m * k2] = _mul_root(t[..., k2], n1 * k2, size)
+    out = np.empty_like(a)
+    for k2 in range(p):
+        t = _dft(a[..., m * k2 : m * (k2 + 1)])
+        for k1 in range(m):
+            out[..., p * k1 + k2] = t[..., k1]
+    return out
+
+
+def _div(plan, i, x):
+    """x // Ns_i as the kernel divides: (x * magic) >> shift."""
+    magic, shift = fft_plan.div_magic(plan.strides[i])
+    return (np.asarray(x, dtype=np.int64) * magic) >> shift
+
+
 def _exchange_writes(plan, i, j):
     """Exchange positions pass ``i`` writes, per thread j (array) and
-    register: {register: position}, as the kernel computes them (base + r *
-    stride), held to pad_index of the Stockham output position."""
+    register: {register: position}, as the kernel computes them (q Ns R +
+    jj + r Ns, q = jj div Ns), held to pad_index of the Stockham output
+    position."""
     radix, ns, t = plan.radices[i], plan.strides[i], plan.threads
-    lg_ns, lg_r = ns.bit_length() - 1, radix.bit_length() - 1
     b_count = plan.elems // radix
     out = {}
     for b in range(b_count):
         jj = j + b * t
-        base = ((jj >> lg_ns) << (lg_ns + lg_r)) + jj
+        base = _div(plan, i, jj) * ns * radix + jj
         for r in range(radix):
             pos = base + r * ns
             e = (jj // ns) * ns * radix + (jj % ns) + r * ns
@@ -91,17 +177,18 @@ def _exchange_writes(plan, i, j):
 
 def _exchange_reads(plan, i, j):
     """Exchange positions pass ``i`` (> 0) reads, as the kernel computes
-    them, held to pad_index of the input position jj + r n / R."""
+    them (jj + q pNs + r (n / R + (n / R div Ns) pNs)), held to pad_index
+    of the input position jj + r n / R."""
     radix, t, n = plan.radices[i], plan.threads, plan.n
-    lg_ns, plg_ns = plan.strides[i].bit_length() - 1, plan.strides[i - 1].bit_length() - 1
+    pns = plan.strides[i - 1]
     b_count = plan.elems // radix
     span = n // radix
-    stride = span + ((span >> lg_ns) << plg_ns)
+    stride = span + _div(plan, i, span) * pns
     out = {}
     for b in range(b_count):
         jj = j + b * t
         for r in range(radix):
-            pos = jj + ((jj >> lg_ns) << plg_ns) + r * stride
+            pos = jj + _div(plan, i, jj) * pns + r * stride
             want = fft_plan.pad_index(jj + r * span, plan.strides[i - 1], plan.radices[i - 1])
             np.testing.assert_array_equal(pos, want)
             out[b + r * b_count] = pos
@@ -124,7 +211,8 @@ def emulate_line_fft(v, plan):
                 v[:, :, reg] = buf[:, pos]
         for b in range(b_count):
             if ns > 1:
-                m = (j + b * t) & (ns - 1)
+                jj = j + b * t
+                m = jj - _div(plan, i, jj) * ns
                 for r in range(1, radix):
                     v[:, :, b + r * b_count] *= plan.twiddles[off + (r - 1) * ns + m]
             v[:, :, b::b_count] = _dft(v[:, :, b::b_count])
@@ -152,7 +240,7 @@ def emulate_fft(x, inverse=False):
     return y
 
 
-@pytest.mark.parametrize("n", LENGTHS)
+@pytest.mark.parametrize("n", LENGTHS + MIXED_LENGTHS)
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
 def test_core_emulation_matches_numpy(n, inverse):
     rng = np.random.default_rng(n)
@@ -163,15 +251,23 @@ def test_core_emulation_matches_numpy(n, inverse):
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("n", LENGTHS)
+@pytest.mark.parametrize("n", LENGTHS + MIXED_LENGTHS + [5000])
 def test_plan_tables(n):
-    """The plan's radices multiply to n, every pass but the last is radix
-    32, the twiddle tables are exp(-2 pi i r m / (Ns R)) rounded once to
-    complex64, and the integers the kernel reads say the same."""
+    """The plan's radices multiply to n and divide E; a power of two keeps
+    radix 32 for every pass but the last, any other length takes an E of
+    MIXED_ELEMS; the twiddle tables are exp(-2 pi i r m / (Ns R)) rounded
+    once to complex64, and the integers the kernel reads say the same."""
     plan = fft_plan.make_plan(n)
     assert np.prod(plan.radices) == n and plan.elems * plan.threads == n
-    assert all(r == fft_plan.MAX_RADIX for r in plan.radices[:-1])
-    assert all(plan.elems % r == 0 for r in plan.radices)
+    assert all(plan.elems % r == 0 and r in fft_plan.RADICES for r in plan.radices)
+    if n & (n - 1) == 0:
+        assert plan.elems == min(n, 32)
+        assert all(r == fft_plan.MAX_RADIX for r in plan.radices[:-1])
+        assert fft_plan.build_defines(plan) == ()
+    else:
+        assert plan.elems in fft_plan.MIXED_ELEMS
+        assert fft_plan.build_defines(plan) == (f"LHG_FFT_ELEMS={plan.elems}",)
+    assert plan.threads <= fft_plan.max_threads(plan.elems)
     for radix, ns, off in zip(plan.radices, plan.strides, plan.tw_offsets):
         if ns == 1:
             continue
@@ -180,24 +276,85 @@ def test_plan_tables(n):
         np.testing.assert_array_equal(plan.twiddles[off:off + want.size], want)
     ints = fft_plan.plan_ints(plan)
     passes = len(plan.radices)
-    assert ints.dtype == np.int32 and ints.size == 5 + 3 * fft_plan.MAX_PASSES
     assert list(ints[:5]) == [n, plan.elems, plan.threads, passes, plan.buffer]
-    lg_r, lg_ns, tw_off = (5 + k * fft_plan.MAX_PASSES for k in range(3))
-    assert [1 << int(v) for v in ints[lg_r:lg_r + passes]] == list(plan.radices)
-    assert [1 << int(v) for v in ints[lg_ns:lg_ns + passes]] == list(plan.strides)
-    assert list(ints[tw_off:tw_off + passes]) == list(plan.tw_offsets)
+    if n & (n - 1) == 0:
+        # the power-of-two library's struct: log2 radix, log2 Ns, offsets
+        assert ints.dtype == np.int32 and ints.size == 5 + 3 * fft_plan.POW2_MAX_PASSES
+        lg_radix, lg_ns, tw_off = (ints[5 + k * fft_plan.POW2_MAX_PASSES:][:passes] for k in range(3))
+        assert [1 << int(v) for v in lg_radix] == list(plan.radices)
+        assert [1 << int(v) for v in lg_ns] == list(plan.strides)
+        assert list(tw_off) == list(plan.tw_offsets)
+        return
+    assert ints.dtype == np.int32 and ints.size == 5 + 5 * fft_plan.MAX_PASSES
+    radix, ns, magic, shift, tw_off = (ints[5 + k * fft_plan.MAX_PASSES:][:passes] for k in range(5))
+    assert list(radix) == list(plan.radices) and list(ns) == list(plan.strides)
+    assert list(tw_off) == list(plan.tw_offsets)
+    x = np.arange(1 << fft_plan.DIV_BITS, dtype=np.int64)
+    for d, mg, sh in zip(plan.strides, magic, shift):
+        assert ((x * int(mg)) >> int(sh) == x // d).all() and int((x * int(mg)).max()) < 2**31
+
+
+@pytest.mark.parametrize("n,elems,radices", [
+    (768, 48, (48, 16)), (1280, 40, (40, 8, 4)), (1728, 24, (24, 24, 3)), (2880, 60, (60, 12, 4)),
+    (5000, 50, (50, 50, 2)), (6, 6, (6,)), (96, 24, (24, 4)), (384, 48, (48, 8))])
+def test_mixed_radix_plans(n, elems, radices):
+    """The plans of the grids' lengths: the fewest passes, a block of up to
+    512 threads where E <= 32, else 256 (255 registers a thread)."""
+    plan = fft_plan.make_plan(n)
+    assert (plan.elems, plan.radices) == (elems, radices)
+    assert fft_plan.max_threads(plan.elems) == (512 if elems <= 32 else 256)
+
+
+def test_every_smooth_length_has_a_plan_but_five():
+    """make_plan takes every 2^a 3^b 5^c from 2 to 16384 but the five whose
+    E would leave more than a block of threads a line (or none divides the
+    length with the radices it needs), and nothing else."""
+    smooth = [n for n in range(2, fft_plan.MAX_LENGTH + 1) if fft_plan.is_smooth(n)]
+    missing = []
+    for n in smooth:
+        try:
+            plan = fft_plan.make_plan(n)
+        except ValueError:
+            missing.append(n)
+            continue
+        assert len(plan.radices) <= fft_plan.MAX_PASSES
+    assert missing == [9375, 15552, 15625, 16000, 16200]
+    for n in (1, 7, 14, 34, 3048, 16385, 32768):
+        with pytest.raises(ValueError):
+            fft_plan.make_plan(n)
 
 
 def test_kernel_sources_match_plan():
     """The header's DFT constants are the float32 values the emulation
-    uses, and the C struct reads as many integers as plan_ints writes."""
+    uses, its E list and radix cases are the plan's, the C struct reads as
+    many integers as plan_ints writes, the blocks' thread limits match
+    max_threads, and the compile-time twiddles (Taylor series, transcribed)
+    round to numpy's float32 cos and sin wherever they are read."""
     src = (CSRC / "fft_hopper.cuh").read_text()
     for name, want in (("kCos", DFT_COS), ("kSin", DFT_SIN)):
         body = re.search(name + r"\[16\] = \{([^}]*)\}", src).group(1)
         got = np.array([float(v.strip().rstrip("f")) for v in body.split(",")], dtype=np.float32)
         np.testing.assert_array_equal(got, want)
-    assert f"kMaxPasses = {fft_plan.MAX_PASSES};" in src
-    assert f"sizeof(FftPlan) == {5 + 3 * fft_plan.MAX_PASSES} * sizeof(int)" in src
+    mixed, pow2 = src.split("#ifdef LHG_FFT_ELEMS\nconstexpr int kMaxPasses", 1)[1].split("#else", 1)
+    assert f" = {fft_plan.MAX_PASSES};" in mixed and "int ns_magic[kMaxPasses];" in mixed
+    assert f"sizeof(FftPlan) == {5 + 5 * fft_plan.MAX_PASSES} * sizeof(int)" in mixed
+    assert f"kMaxPasses = {fft_plan.POW2_MAX_PASSES};" in pow2 and "int lg_ns[kMaxPasses];" in pow2
+    assert f"sizeof(FftPlan) == {5 + 3 * fft_plan.POW2_MAX_PASSES} * sizeof(int)" in pow2.split("#endif")[0]
+    elems = re.search(r"#define LHG_FFT_MIXED_ELEMS\(X\)(.*?)\n#", src, re.S).group(1)
+    assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", elems)) == fft_plan.MIXED_ELEMS
+    assert "#define LHG_FFT_KERNEL_ELEMS(X) X(32) X(16) X(8) X(4) X(2)" in src
+    line = src[src.index("void fft_line"):]
+    assert tuple(int(v) for v in re.findall(r"LHG_FFT_RADIX\((\d+)\)", line)) == fft_plan.RADICES
+    consts = {name: np.float32(float(v)) for name, v in re.findall(r"k(S3|C1|C2|S1|S2) = (-?[0-9.]+)f", src)}
+    assert consts == {"S3": S3, "C1": C5[0], "C2": C5[1], "S1": S5[0], "S2": S5[1]}
+    assert "elems > 32 ? 256 : 512" in src
+    for kernel in ("k3_fft.cu", "k1_asm_propagate.cu"):
+        assert "__launch_bounds__(E > 32 ? 256 : 512)" in (CSRC / kernel).read_text()
+    for r in sorted({r for r in fft_plan.RADICES if r & (r - 1)}):
+        for q in range(1, r):
+            if 4 * q % r:  # the quarter turns are exact, never read from the table
+                assert taylor_cos_sin(q, r) == (np.float32(np.cos(2 * np.pi * q / r)),
+                                                np.float32(np.sin(2 * np.pi * q / r))), (r, q)
 
 
 def _half_warp_conflicts(addresses):
@@ -252,6 +409,49 @@ def test_exchanges_free_of_bank_conflicts(n):
                         assert _half_warp_conflicts(warp) == 0, (name, n, i)
 
 
+def _max_ways(plan):
+    """The most accesses one bank pair takes in a half-warp, over every
+    warp's reads and writes of every exchange in every block shape the
+    wrappers launch (1: conflict-free); each address inside the block's
+    shared memory."""
+    t = plan.threads
+    ways = 1
+    for name, lpb, columns in _layouts(plan):
+        threads = lpb * t
+        tid = np.arange(threads)
+        line = tid % lpb if columns else tid // t
+        j = tid // lpb if columns else tid % t
+        for i in range(len(plan.radices)):
+            accesses = []
+            if i + 1 < len(plan.radices):
+                accesses.append(_exchange_writes(plan, i, j))
+            if i > 0:
+                accesses.append(_exchange_reads(plan, i, j))
+            for regs in accesses:
+                for pos in regs.values():
+                    addr = pos * lpb + line if columns else line * plan.buffer + pos
+                    assert addr.max() < lpb * plan.buffer
+                    for w in range(0, threads, 16):
+                        half = np.unique(addr[w:w + 16])
+                        ways = max(ways, int(np.bincount(half % 16).max()))
+    return ways
+
+
+@pytest.mark.parametrize("n,bound", [(n, 2) for n in MIXED_LENGTHS + [5000] if n > 48]
+                         + [(75, 5), (375, 16)])
+def test_mixed_radix_exchanges_bank_conflicts_bounded(n, bound):
+    """The pad_index layout is conflict-free for powers of two only.  For a
+    mixed-radix plan a bank pair takes at most 2 accesses of a half-warp
+    (a 2-way conflict) at every length with a factor 2 in most strides:
+    the path lengths here, and all but 15 of the 161 multi-pass mixed
+    lengths up to 16384.  The 15 are odd lengths or nearly (75: 5-way;
+    225, 375, 1125, 1875, 3375, 5625: 15- to 16-way; 100, 108, 162, 243,
+    729, 1500, 2187, 6561: 3- to 4-way): correct, slower, on no path."""
+    plan = fft_plan.make_plan(n)
+    assert len(plan.radices) > 1
+    assert _max_ways(plan) <= bound
+
+
 def _old_supported_length(n):
     # the radix-2 K3: one (n, 1) tile and n/2 twiddles in 227 KB
     return n >= 2 and n & (n - 1) == 0 and (n + n // 2) * 8 <= 232448
@@ -280,6 +480,30 @@ def test_predicates_accept_what_the_radix2_kernels_did():
             assert spectral.supported(rp, cp), (rp, cp)
     assert all(_old_k1_supported(*g) for g in [(32, 40), (64, 64), (1024, 1024), (2048, 2048),
                                               (4096, 4096), (8192, 8192)])
+
+
+def test_predicates_accept_the_mixed_radix_lengths():
+    """K3 takes the portrait grid (1280 x 768), the 4K grid (2880 x 5000)
+    and 1728; K1 and K2 take rp = 768, 1280, 1728, 2880 and 5000 at any
+    cp; both refuse lengths with another prime factor (1080p's 3048 =
+    8 * 3 * 127 columns: K3 declines that grid, K1 takes it) and the five
+    smooth lengths without a plan.  K3's length predicate is exactly "has a
+    plan whose blocks fit"."""
+    for n in (6, 12, 24, 48, 96, 384, 768, 1280, 1728, 2880, 5000):
+        assert fft.supported_length(n), n
+        assert spectral.supported(n, 7) and spectral.supported(n, 3048), n
+    assert fft.supported(1280, 768) and fft.supported(2880, 5000)
+    assert not fft.supported(1728, 3048)
+    for n in (14, 34, 3048, 9375, 15552, 15625, 16000, 16200):
+        assert not fft.supported_length(n) and not spectral.supported(n, 64), n
+    for n in range(2, fft_plan.MAX_LENGTH + 1):
+        try:
+            plan = fft_plan.make_plan(n)
+        except ValueError:
+            assert not fft.supported_length(n)
+            continue
+        fits = fft._pick_lpb(plan, False) is not None and fft._pick_lpb(plan, True) is not None
+        assert fft.supported_length(n) == fits
 
 
 def _emulate_row_pass(x, wl2, dists, mask, cfg):
@@ -337,11 +561,13 @@ MODES = {
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("rows,cols,pad", [(24, 32, 4), (40, 24, 12)])
+@pytest.mark.parametrize("rows,cols,pad", [(24, 32, 4), (40, 24, 12), (40, 24, 20)])
 def test_k1_row_pass_emulation_matches_plain_version(mode, rows, cols, pad):
     """K1's index arithmetic in every mode, on a 32-row grid (one pass, no
-    exchange) and a 64-row grid (two passes), with a seeded field in the
-    caller's mask so that a mirrored row or column read shows."""
+    exchange), a 64-row grid (two passes) and the portrait grid's shape at
+    1/16 (40 x 24 at pads 20 / 12: 80 x 48, rp = 80 = 20 * 4 on E = 20),
+    with a seeded field in the caller's mask so that a mirrored row or
+    column read shows."""
     conj_h, num_d, from_spectrum, per_plane, override = MODES[mode]
     optics = OpticsConfig(rows=rows, cols=cols, pad_size=pad, filter_radius_coefficient=0.45)
     plan = asm.make_plan(optics, distances=np.linspace(4e-4, 1e-3, 3 if per_plane else num_d), device="cpu")
@@ -465,11 +691,12 @@ K2_MODES = {
 
 
 @pytest.mark.parametrize("mode", list(K2_MODES))
-@pytest.mark.parametrize("rows,cols,pad", [(24, 32, 4), (40, 23, 12)])
+@pytest.mark.parametrize("rows,cols,pad", [(24, 32, 4), (40, 23, 12), (40, 24, 20)])
 def test_k2_row_adjoint_emulation_matches_plain_version_and_jax(mode, rows, cols, pad):
-    """K2's index arithmetic in every mode, on a 32-row grid (one pass) and
-    a 64-row grid of 47 columns (two passes; a column count no block of 8
-    divides), through the wrapper's column transforms, against the plain
+    """K2's index arithmetic in every mode, on a 32-row grid (one pass), a
+    64-row grid of 47 columns (two passes; a column count no block of 8
+    divides) and the portrait grid's shape at 1/16 (80 x 48, a mixed-radix
+    rp), through the wrapper's column transforms, against the plain
     adjoint and against jax.vjp of the JAX package's propagate_planes."""
     conj_h, num_d, from_spectrum, per_plane, mask_kind = K2_MODES[mode]
     optics = OpticsConfig(rows=rows, cols=cols, pad_size=pad, filter_radius_coefficient=0.45)

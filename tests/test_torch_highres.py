@@ -4,9 +4,9 @@ function (``cache_h=False``) and the ``sequential`` distance mode.
 
 Inputs come from seeded numpy.  The JAX side runs compiled on its ``xla``
 FFT backend, as tests/test_torch_ops.py runs it.  Two grids: a power of
-two (the port's fused branch, K1's plain version) and a grid that is not
-(24 x 36 through ``pad_cols_override``: the composable ``torch.fft``
-branch, which the 1080p and 4K grids take).
+two (the port's fused branch, K1's plain version) and a grid whose padded
+rows have no FFT plan (22 x 36 through ``pad_cols_override``, 22 = 2 * 11:
+the composable ``torch.fft`` branch, which every grid K1 declines takes).
 
 Tolerances, with their reasons:
   * the port against itself, cached H against H on the fly: bit for bit
@@ -69,8 +69,8 @@ def test_pad_cols_override_geometry_matches_jax(override):
     assert GeneratorConfig(**g).optics().pad_cols == JaxGenConfig(**g).optics().pad_cols
 
 
-# rows, cols, pad, pad_cols_override: 32 x 32 (K1's fused branch) and 24 x 36
-GRIDS = {"fused": (16, 16, 8, None), "override": (16, 24, 4, 6)}
+# rows, cols, pad, pad_cols_override: 32 x 32 (K1's fused branch) and 22 x 36
+GRIDS = {"fused": (16, 16, 8, None), "override": (16, 24, 3, 6)}
 DISTANCES = np.linspace(-4e-4, 0.0, 5)[:-1]
 
 

@@ -1,7 +1,8 @@
 """The port's library surface: the quickstart example end to end on the
 CPU, the seed and parity helpers (``utils/seed.py``, ``utils/misc.py``), and
-that the modules of the serving slice import neither JAX nor the JAX
-package.
+that the modules of the serving slice and of the last slice (the GEMM FFT,
+EXR I/O, the timer and profiler, the synthetic dataset, the mixed-radix
+FFT plans) import neither JAX nor the JAX package.
 """
 
 import os
@@ -34,6 +35,17 @@ SLICE_MODULES = [
     "learned_hologram_gan_tpu_torch.examples.quickstart",
     "learned_hologram_gan_tpu_torch.serve_smoke",
     "learned_hologram_gan_tpu_torch.card_check",
+    "learned_hologram_gan_tpu_torch.ops.mxu_fft",
+    "learned_hologram_gan_tpu_torch.ops.cuda.fft_plan",
+    "learned_hologram_gan_tpu_torch.ops.cuda.build",
+    "learned_hologram_gan_tpu_torch.nn.blocks",
+    "learned_hologram_gan_tpu_torch.data.exr",
+    "learned_hologram_gan_tpu_torch.exr2bin",
+    "learned_hologram_gan_tpu_torch.utils.timer",
+    "learned_hologram_gan_tpu_torch.utils.profiling",
+    "learned_hologram_gan_tpu_torch.tools.make_synthetic_dataset",
+    "learned_hologram_gan_tpu_torch.mixed_radix_smoke",
+    "learned_hologram_gan_tpu_torch.highres_smoke",
 ]
 
 

@@ -144,6 +144,8 @@ def test_healthz_and_single_request(server, weights):
     service, port = server
     health = _health(port)
     assert health["buckets"] == list(BUCKETS) and health["quantize"] == "none"
+    # the sum of the batch times beside their mean: a client reads its change
+    assert health["mean_batch_ms"] == round(health["batch_ms_total"] / max(health["batches"], 1), 2)
     assert health["dtype"] == "float32" and (health["rows"], health["cols"]) == (ROWS, COLS)
     rgbd = _rgbd(0)
     poh = _poh(port, rgbd)
@@ -347,3 +349,25 @@ def test_bench_serve_drives_server_processes(tmp_path):
         assert r["quantize"] == quantize and r["wire_poh_per_s"] > 0 and r["wire_poh_per_s_u8"] > 0
         assert r["device_poh_per_s"] == round(1e3 * 2 / r["mean_batch_ms"], 1)
     assert (tmp_path / "serving" / "qtree_int8.npz").exists()
+
+
+def test_bench_serve_device_rate_leaves_out_the_warm_up_batch(monkeypatch):
+    """bench_serve's mean batch time is the change of /healthz's
+    batch_ms_total over the change of its batches across the timed
+    requests: a slow first (warm-up) batch does not enter it."""
+    from learned_hologram_gan_tpu_torch.tools import bench_serve
+
+    stats = {"batches": 0, "batch_ms_total": 0.0}
+
+    def post(port, body, batch, wire_quant=None):
+        stats["batch_ms_total"] += 900.0 if stats["batches"] == 0 else 10.0
+        stats["batches"] += 1
+        return b""
+
+    monkeypatch.setattr(bench_serve, "_post", post)
+    monkeypatch.setattr(bench_serve, "_healthz", lambda port: dict(
+        stats, mean_batch_ms=stats["batch_ms_total"] / max(stats["batches"], 1)))
+    rate, health, mean_ms = bench_serve.drive(0, np.zeros((2, 4, 3, 3), np.float32), reqs=8)
+    assert mean_ms == pytest.approx(10.0)
+    assert health["batches"] == 9 and health["mean_batch_ms"] == pytest.approx(980.0 / 9)
+    assert rate > 0
