@@ -466,7 +466,7 @@ def main():
     with Phase("build"):
         start = time.perf_counter()
         names = [spectral.KERNEL_NAME, fft.KERNEL_NAME, transfer.KERNEL_NAME, conv_block.KERNEL_NAME]
-        # K1's and K3's mixed-radix plans: one library per E, those the paths use
+        # K1's and K3's mixed-radix plans: one library per plan, those the paths use
         mixed = [(name, d) for name in (spectral.KERNEL_NAME, fft.KERNEL_NAME)
                  for d in mixed_radix_smoke.build_defines_of_the_paths() if d]
         built = build.build_jobs([(name, ()) for name in names] + mixed)

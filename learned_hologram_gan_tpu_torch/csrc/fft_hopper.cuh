@@ -11,13 +11,29 @@
 // multiplies element r by w^(r * (jj mod Ns)), w = exp(-2 pi i / (Ns R))
 // (the plan's table), runs an R-point DFT in registers and hands element r
 // on to (jj div Ns) Ns R + jj mod Ns + r Ns.  Thread j runs butterflies
-// jj = j + b T, b < E / R, with butterfly b's element r in v[b + r E / R]:
-// every radix of a plan divides its E.  A power of two takes E = min(n, 32)
-// and radix 32 for every pass but the last, so a 1024-point line is two
-// 32-point DFTs per thread with one exchange through shared memory, and no
-// such line needs more than two.  Other lengths take E from
-// LHG_FFT_MIXED_ELEMS (up to 60; 1280 = 40 * 8 * 4 with E = 40), one
-// library per E (LHG_FFT_KERNEL_ELEMS).
+// jj = j + b T, b < B = ceil(n / (R T)), with butterfly b's element r in
+// slot b + r B.
+//
+// Powers of two (no LHG_FFT_RADICES): E = min(n, 32) and radix 32 for
+// every pass but the last, so a 1024-point line is two 32-point DFTs per
+// thread with one exchange through shared memory, and no such line needs
+// more than two.  The library reads its radices and strides as log2 in a
+// plan of 14 integers at run time and divides by Ns with shifts.
+//
+// Any other length: one library per plan, the plan compiled in
+// (fft_plan.py:build_defines): LHG_FFT_ELEMS = E, LHG_FFT_RADICES and
+// LHG_FFT_GAPS the radices and the exchanges' gaps as '.'-separated lists
+// (read from their spelling at compile time), LHG_FFT_MAX_THREADS the
+// kernels' block limit and LHG_FFT_COLUMNS the lines a block interleaves
+// (K3 along axis -2, K1 and K2).  The passes unroll with constant radices,
+// strides, twiddle offsets and divisions, and with the column count
+// constant the exchange's and the thread-private slots' strides are too;
+// the kernels' FftPlan is an empty struct whose static members are the
+// plan's sizes.  The first and the last radix divide E (the loads' and the
+// stores' natural order); a middle pass takes any radix and runs
+// ceil(n / (R T)) butterflies a thread, the last one guarded where they do
+// not divide evenly, so that a thread holds few values (1280 = 16 * 5 * 16:
+// E = 16, T = 80, the radix-5 pass 4 butterflies a thread, 20 values).
 //
 // The register DFTs: a power of two by radix-2 decimation in frequency
 // (constants of w_32); 3 and 5 by their direct formulas; any other radix
@@ -25,21 +41,17 @@
 // (constants computed in double at compile time and rounded to float), then
 // M-point DFTs, renamed into natural order (no instructions once unrolled).
 //
-// An exchange stores element e at fft_plan.py:pad_index(e) (one gap of Ns after
-// every Ns R values), scaled by the layout's stride: for powers of two a
-// half-warp's 8-byte accesses then fall on 16 distinct bank pairs, both
-// when a pass writes and when the next one reads (other lengths: the
-// bounded conflicts tests/test_torch_fft_plan.py states).  Each exchange
-// is bracketed by two barriers of the line's threads (a warp's or the
-// block's, as the caller says); the twiddles are read through the
-// read-only cache, consecutive threads on consecutive entries.  Division
-// by Ns is a shift in a power-of-two plan, (x * magic) >> shift in the
-// others (fft_plan.py:div_magic).  The power-of-two library (no
-// LHG_FFT_ELEMS) carries its radices and strides as log2 in a plan of 14
-// integers and runs the power-of-two code alone; a mixed-radix library
-// (LHG_FFT_ELEMS=E) carries values, magic numbers and shifts in 50.  Only forward
-// transforms are run: the inverse is conj(F(conj(x))), which the callers
-// fold into their loads and stores.
+// An exchange stores element e at fft_plan.py:pad_index(e) (a gap after
+// every Ns R values: Ns for the powers of two, the plan's gap otherwise),
+// scaled by the layout's stride: for powers of two a half-warp's 8-byte
+// accesses then fall on 16 distinct bank pairs, both when a pass writes
+// and when the next one reads (other lengths: the gap fft_plan.py's bank
+// model picks, and the bound tests/test_torch_fft_plan.py states).  Each
+// exchange is bracketed by two barriers of the line's threads (a warp's or
+// the block's, as the caller says); the twiddles are read through the
+// read-only cache, consecutive threads on consecutive entries.  Only
+// forward transforms are run: the inverse is conj(F(conj(x))), which the
+// callers fold into their loads and stores.
 
 #pragma once
 
@@ -49,37 +61,112 @@
 namespace lhg {
 namespace hopper {
 
-// The values per thread (E) of the plans of lengths that are not powers of
-// two (fft_plan.py:MIXED_ELEMS).  A build of K1 or K3 instantiates its
-// kernels for the powers of two, or, with -DLHG_FFT_ELEMS=E
-// (fft_plan.py:build_defines), for that one E: each such library builds at
-// the first use of a length of its E, and the libraries build in parallel.
-#define LHG_FFT_MIXED_ELEMS(X) \
-  X(3) X(5) X(6) X(9) X(10) X(12) X(15) X(18) X(20) X(24) X(25) X(27) X(30) X(36) X(40) X(45) \
-  X(48) X(50) X(54) X(60)
-#ifdef LHG_FFT_ELEMS
+// The E a library instantiates its kernels for: the powers of two's, or the
+// one E of its mixed-radix plan.  A thread may use up to 255 registers in a
+// power-of-two library's blocks of at most 512 threads; a mixed-radix
+// library's blocks hold at most LHG_FFT_MAX_THREADS (fft_plan.py:
+// FftPlan.max_threads), its kernels' __launch_bounds__.
+// K3's blocks of whole lines (axis -1) hold at most line_block_threads():
+// the same in a power-of-two library, max(T, 128) in a mixed-radix one
+// (fft_plan.py:FftPlan.line_threads), so that its register cap is not the
+// interleaved columns'.
+#ifdef LHG_FFT_RADICES
 #define LHG_FFT_KERNEL_ELEMS(X) X(LHG_FFT_ELEMS)
+#define LHG_FFT_LAUNCH_BOUND(E) LHG_FFT_MAX_THREADS
+#define LHG_FFT_K3_LAUNCH_BOUND(E, kColumns) (kColumns ? LHG_FFT_MAX_THREADS : LHG_FFT_LINE_THREADS)
 #else
 #define LHG_FFT_KERNEL_ELEMS(X) X(32) X(16) X(8) X(4) X(2)
+#define LHG_FFT_LAUNCH_BOUND(E) E > 32 ? 256 : 512
+#define LHG_FFT_K3_LAUNCH_BOUND(E, kColumns) E > 32 ? 256 : 512
+__host__ __device__ constexpr int max_block_threads(int elems) { return elems > 32 ? 256 : 512; }
+__host__ __device__ constexpr int line_block_threads(int elems) { return elems > 32 ? 256 : 512; }
 #endif
 
-// A kernel instantiated for E values a thread may use up to 255 registers:
-// its blocks hold at most 256 threads where E > 32 (fft_plan.py:max_threads).
-__host__ __device__ constexpr int max_block_threads(int elems) { return elems > 32 ? 256 : 512; }
+#ifdef LHG_FFT_RADICES
+#define LHG_FFT_STR2(x) #x
+#define LHG_FFT_STR(x) LHG_FFT_STR2(x)
 
-// ops/cuda/fft_plan.py:plan_ints, field for field
-#ifdef LHG_FFT_ELEMS
-constexpr int kMaxPasses = 9;  // 13824 = 54 * 2^8, fft_plan.py:MAX_PASSES
+// The count of a '.'-separated list of decimal integers, and its item i
+__host__ __device__ constexpr int list_size(const char* s) {
+  int count = 1;
+  for (; *s; ++s) count += *s == '.';
+  return count;
+}
+
+__host__ __device__ constexpr int list_item(const char* s, int i) {
+  int value = 0;
+  for (; *s; ++s) {
+    if (*s == '.') {
+      if (i-- == 0) return value;
+      value = 0;
+    } else {
+      value = 10 * value + (*s - '0');
+    }
+  }
+  return i == 0 ? value : -1;
+}
+
+// The plan compiled into this library, as fft_plan.py:make_plan builds it
+namespace compiled {
+__host__ __device__ constexpr int radix(int i) { return list_item(LHG_FFT_STR(LHG_FFT_RADICES), i); }
+__host__ __device__ constexpr int gap(int i) { return list_item(LHG_FFT_STR(LHG_FFT_GAPS), i); }
+constexpr int kPasses = list_size(LHG_FFT_STR(LHG_FFT_RADICES));
+__host__ __device__ constexpr int stride(int i) {  // Ns_i
+  int ns = 1;
+  for (int k = 0; k < i; ++k) ns *= radix(k);
+  return ns;
+}
+constexpr int kN = stride(kPasses);
+constexpr int kElems = LHG_FFT_ELEMS;
+constexpr int kThreads = kN / kElems;
+// the lines a block interleaves (fft_plan.py:FftPlan.columns): K3 along
+// axis -2, K1 / K2 with D = 1, and with their second array (0: none fits)
+constexpr int kK3Columns = list_item(LHG_FFT_STR(LHG_FFT_COLUMNS), 0);
+constexpr int kK1Columns = list_item(LHG_FFT_STR(LHG_FFT_COLUMNS), 1);
+constexpr int kK1KeptColumns = list_item(LHG_FFT_STR(LHG_FFT_COLUMNS), 2);
+__host__ __device__ constexpr int tw_offset(int i) {  // pass i's table (0 where Ns = 1)
+  int offset = 0;
+  for (int k = 0; k < i; ++k) offset += stride(k) > 1 ? (radix(k) - 1) * stride(k) : 0;
+  return stride(i) > 1 ? offset : 0;
+}
+__host__ __device__ constexpr int buffer() {  // fft_plan.py: the padded exchange of a line
+  int b = 0;
+  for (int i = 0; i + 1 < kPasses; ++i) {
+    const int last = kN - 1 + gap(i) * ((kN - 1) / stride(i + 1)) + 1;
+    b = last > b ? last : b;
+  }
+  return b ? b + ((kThreads - b) % 16 + 16) % 16 : 0;
+}
+static_assert(kN % kElems == 0 && kN >= 2 && kPasses <= 6, "a plan of fft_plan.py");
+static_assert(kElems % radix(0) == 0 && kElems % radix(kPasses - 1) == 0,
+              "the first and the last radix divide E");
+}  // namespace compiled
+
+#define LHG_FFT_LINE_THREADS \
+  (::lhg::hopper::compiled::kThreads > 128 ? ::lhg::hopper::compiled::kThreads : 128)
+__host__ __device__ constexpr int max_block_threads(int) { return LHG_FFT_MAX_THREADS; }
+__host__ __device__ constexpr int line_block_threads(int) { return LHG_FFT_LINE_THREADS; }
+
+// The kernels' plan argument: empty, its sizes static members
 struct FftPlan {
-  int n, elems, threads, passes, buffer;
-  int radix[kMaxPasses];
-  int ns[kMaxPasses];
-  int ns_magic[kMaxPasses];  // jj / ns == (jj * ns_magic) >> ns_shift for jj < 2^14
-  int ns_shift[kMaxPasses];
-  int tw_off[kMaxPasses];
+  static constexpr int n = compiled::kN;
+  static constexpr int elems = compiled::kElems;
+  static constexpr int threads = compiled::kThreads;
+  static constexpr int passes = compiled::kPasses;
+  static constexpr int buffer = compiled::buffer();
 };
-static_assert(sizeof(FftPlan) == 50 * sizeof(int), "FftPlan must match plan_ints");
+
+// The struct from plan_ints' integers (host memory): nothing to read
+inline FftPlan plan_from_ints(const int*) { return FftPlan{}; }
+
+// True if plan_ints' head (n, elems, threads, passes, buffer) is this
+// library's plan: a wrapper that loaded another plan's library is refused.
+inline bool plan_ints_match(const int* f) {
+  return f[0] == FftPlan::n && f[1] == FftPlan::elems && f[2] == FftPlan::threads &&
+         f[3] == FftPlan::passes && f[4] == FftPlan::buffer;
+}
 #else
+// ops/cuda/fft_plan.py:plan_ints, field for field
 constexpr int kMaxPasses = 3;  // 16384 = 32 * 32 * 16, fft_plan.py:POW2_MAX_PASSES
 struct FftPlan {
   int n, elems, threads, passes, buffer;
@@ -88,7 +175,6 @@ struct FftPlan {
   int tw_off[kMaxPasses];
 };
 static_assert(sizeof(FftPlan) == 14 * sizeof(int), "FftPlan must match plan_ints");
-#endif
 
 // The struct from plan_ints' integers (host memory).
 inline FftPlan plan_from_ints(const int* f) {
@@ -96,6 +182,7 @@ inline FftPlan plan_from_ints(const int* f) {
   memcpy(&plan, f, sizeof(FftPlan));
   return plan;
 }
+#endif
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -317,68 +404,110 @@ struct LineSync {
 // 32 (a line of 20 threads would straddle two warps), which for the
 // powers of two is T <= 32.
 __device__ __forceinline__ bool line_in_warp(int threads) {
-#ifdef LHG_FFT_ELEMS
+#ifdef LHG_FFT_RADICES
   return 32 % threads == 0;
 #else
   return threads <= 32;
 #endif
 }
 
-// Pass i of radix R.  The exchange positions are pad_index's, written as
-// base + r * stride (the padding gap falls between the r's of a butterfly,
-// never inside its stride): with q = jj div Ns, pass i writes element r of
-// butterfly jj at q Ns R + jj + r Ns, and reads its element r, jj + r n / R,
-// at jj + q pNs + r (n / R + (n / R div Ns) pNs), where pNs is the previous
-// pass's stride.
-#ifdef LHG_FFT_ELEMS
-template <int E, int R>
-__device__ __forceinline__ void run_pass(float2 (&v)[E], const FftPlan& p, int i, int j,
-                                         float2* buf, int bs, const float2* __restrict__ tw,
-                                         LineSync sync) {
-  constexpr int B = E / R;
-  const int T = p.threads;
-  const int ns = p.ns[i];
-  const int magic = p.ns_magic[i];
-  const int shift = p.ns_shift[i];
-  const auto div_ns = [&](int x) { return (x * magic) >> shift; };
-  if (i > 0) {
-    const int pns = p.ns[i - 1];
-    const int span = p.n / R;
-    const int stride = (span + div_ns(span) * pns) * bs;
+// j as a kernel uses it inside a loop (the FFT's exchange addresses, the
+// rows of H): in a mixed-radix library an opaque copy, so that the
+// arithmetic on it (constant divisions, the rows' frequencies) stays in the
+// loop; hoisted out of K1's and K2's per-distance loops it held registers
+// across them and spilled at E = 60.
+__device__ __forceinline__ int loop_index(int j) {
+#ifdef LHG_FFT_RADICES
+  asm volatile("" : "+r"(j));
+#endif
+  return j;
+}
+
+// Pass I of the compiled plan, radix R: butterflies jj = j + b T, b < B,
+// the last guarded where B T > n / R.  The exchange positions are
+// pad_index's with the plan's gaps, written as base + r * stride (the gap
+// falls between the r's of a butterfly, never inside its stride): with
+// q = jj div Ns, pass I writes element r of butterfly jj at
+// q (Ns R + G) + jj mod Ns + r Ns, G its exchange's gap, and reads its
+// element r, jj + r n / R, at jj + G' (jj div Ns) + r (n / R + G' (n / R) / Ns),
+// G' the previous exchange's gap.  The first pass takes the loads' registers
+// and the last hands the stores theirs (B R = E there); a middle pass holds
+// its B R values in `u` alone.
+#ifdef LHG_FFT_RADICES
+template <int E, int I>
+__device__ __forceinline__ void run_plan_pass(float2 (&v)[E], int j, float2* buf, int bs,
+                                              const float2* __restrict__ tw, LineSync sync) {
+  constexpr int R = compiled::radix(I);
+  constexpr int NS = compiled::stride(I);
+  constexpr int T = compiled::kThreads;
+  constexpr int SPAN = compiled::kN / R;
+  constexpr int B = (SPAN + T - 1) / T;
+  constexpr bool kGuard = B * T != SPAN;
+  constexpr bool kFirst = I == 0;
+  constexpr bool kLast = I + 1 == compiled::kPasses;
+  static_assert(!(kFirst || kLast) || B * R == E, "the first and the last pass hold E values");
+  float2 u[B * R];
+  if constexpr (kFirst) {
+#pragma unroll
+    for (int c = 0; c < E; ++c) u[c] = v[c];
+  } else {
+    constexpr int G = compiled::gap(I - 1);
+    const int stride = (SPAN + G * (SPAN / NS)) * bs;
 #pragma unroll
     for (int b = 0; b < B; ++b) {
       const int jj = j + b * T;
-      const float2* src = buf + (jj + div_ns(jj) * pns) * bs;
+      if (!kGuard || b + 1 < B || jj < SPAN) {
+        const float2* src = buf + (jj + G * (jj / NS)) * bs;
 #pragma unroll
-      for (int r = 0; r < R; ++r) v[b + r * B] = src[r * stride];
+        for (int r = 0; r < R; ++r) u[b + r * B] = src[r * stride];
+      }
     }
   }
-  const float2* __restrict__ w = tw + p.tw_off[i];
 #pragma unroll
   for (int b = 0; b < B; ++b) {
-    if (ns > 1) {
-      const int jj = j + b * T;
-      const float2* __restrict__ wm = w + (jj - div_ns(jj) * ns);
+    const int jj = j + b * T;
+    if (!kGuard || b + 1 < B || jj < SPAN) {
+      if constexpr (NS > 1) {
+        const float2* __restrict__ wm = tw + compiled::tw_offset(I) + jj % NS;
 #pragma unroll
-      for (int r = 1; r < R; ++r) v[b + r * B] = cmul(v[b + r * B], __ldg(wm + (r - 1) * ns));
+        for (int r = 1; r < R; ++r) u[b + r * B] = cmul(u[b + r * B], __ldg(wm + (r - 1) * NS));
+      }
+      dft<R, B>(&u[b]);
     }
-    dft<R, B>(&v[b]);
   }
-  if (i + 1 < p.passes) {
+  if constexpr (kLast) {
+#pragma unroll
+    for (int c = 0; c < E; ++c) v[c] = u[c];
+  } else {
+    constexpr int G = compiled::gap(I);
     sync();  // the previous reads of the buffer are done
-    const int stride = ns * bs;
+    const int stride = NS * bs;
 #pragma unroll
     for (int b = 0; b < B; ++b) {
       const int jj = j + b * T;
-      float2* dst = buf + (div_ns(jj) * ns * R + jj) * bs;
+      if (!kGuard || b + 1 < B || jj < SPAN) {
+        const int q = jj / NS;
+        float2* dst = buf + (q * (NS * R + G) + jj - q * NS) * bs;
 #pragma unroll
-      for (int r = 0; r < R; ++r) dst[r * stride] = v[b + r * B];
+        for (int r = 0; r < R; ++r) dst[r * stride] = u[b + r * B];
+      }
     }
     sync();  // the writes are visible to the next pass
   }
 }
+
+template <int E, int I>
+__device__ __forceinline__ void run_plan_passes(float2 (&v)[E], int j, float2* buf, int bs,
+                                                const float2* __restrict__ tw, LineSync sync) {
+  run_plan_pass<E, I>(v, j, buf, bs, tw, sync);
+  if constexpr (I + 1 < compiled::kPasses) run_plan_passes<E, I + 1>(v, j, buf, bs, tw, sync);
+}
 #else
-// Here Ns = 2^lg_ns: q = jj >> lg_ns, and the positions are shifts.
+// Pass i of radix R in the power-of-two library, Ns = 2^lg_ns: with
+// q = jj >> lg_ns it writes element r of butterfly jj at q Ns R + jj + r Ns
+// (pad_index with the gap Ns) and reads element r, jj + r n / R, at
+// jj + q pNs + r (n / R + (n / R >> lg_ns) pNs), pNs the previous pass's
+// stride; the positions are shifts.
 template <int E, int R>
 __device__ __forceinline__ void run_pass(float2 (&v)[E], const FftPlan& p, int i, int j,
                                          float2* buf, int bs, const float2* __restrict__ tw,
@@ -434,21 +563,10 @@ __device__ __forceinline__ void fft_line(float2 (&v)[E], const FftPlan& p, int j
 #ifdef LHG_ABLATE_FFT
   return;  // a measurement build of fft_ablation.py: no transform, a wrong result
 #endif
-#define LHG_FFT_RADIX(R) \
-  case R:                \
-    if constexpr (E % R == 0) run_pass<E, R>(v, p, i, j, buf, bs, tw, sync); \
-    break;
-  for (int i = 0; i < p.passes; ++i) {
-#ifdef LHG_FFT_ELEMS
-    switch (p.radix[i]) {
-      LHG_FFT_RADIX(2) LHG_FFT_RADIX(3) LHG_FFT_RADIX(4) LHG_FFT_RADIX(5) LHG_FFT_RADIX(6)
-      LHG_FFT_RADIX(8) LHG_FFT_RADIX(9) LHG_FFT_RADIX(10) LHG_FFT_RADIX(12) LHG_FFT_RADIX(15)
-      LHG_FFT_RADIX(16) LHG_FFT_RADIX(18) LHG_FFT_RADIX(20) LHG_FFT_RADIX(24) LHG_FFT_RADIX(25)
-      LHG_FFT_RADIX(27) LHG_FFT_RADIX(30) LHG_FFT_RADIX(32) LHG_FFT_RADIX(36) LHG_FFT_RADIX(40)
-      LHG_FFT_RADIX(45) LHG_FFT_RADIX(48) LHG_FFT_RADIX(50) LHG_FFT_RADIX(54) LHG_FFT_RADIX(60)
-      default: break;
-    }
+#ifdef LHG_FFT_RADICES
+  run_plan_passes<E, 0>(v, j, buf, bs, tw, sync);
 #else
+  for (int i = 0; i < p.passes; ++i) {
     switch (p.lg_radix[i]) {
       case 1: run_pass<E, 2>(v, p, i, j, buf, bs, tw, sync); break;
       case 2: if constexpr (E >= 4) run_pass<E, 4>(v, p, i, j, buf, bs, tw, sync); break;
@@ -457,9 +575,8 @@ __device__ __forceinline__ void fft_line(float2 (&v)[E], const FftPlan& p, int j
       case 5: if constexpr (E >= 32) run_pass<E, 32>(v, p, i, j, buf, bs, tw, sync); break;
       default: break;
     }
-#endif
   }
-#undef LHG_FFT_RADIX
+#endif
 }
 
 }  // namespace hopper

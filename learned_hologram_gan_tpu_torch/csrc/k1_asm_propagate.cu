@@ -33,9 +33,10 @@
 //     fft_hopper.cuh: at rp = 1024 each thread holds 32 values of its
 //     column and does two 32-point DFTs with one exchange through shared
 //     memory (interleaved by column, padded free of bank conflicts).  Any
-//     rp with a mixed-radix plan runs the same way on up to 60 values a
-//     thread (1280 = 40 * 8 * 4, 1728 = 24 * 24 * 3), in blocks of up to
-//     256 threads there.  The
+//     other 2*3*5-smooth rp runs the same way on its own library, the plan
+//     compiled in (1280 = 16 * 5 * 16 on E = 16, 1728 = 24 * 24 * 3, 2880 =
+//     12 * 20 * 12 on E = 60), 8 columns a block wherever they fit (the plan's
+//     LHG_FFT_MAX_THREADS and 227 KB: one block an SM at 2880).  The
 //     spectrum comes out in natural order, in the order the inverse
 //     transform takes its input: it is multiplied by the mask once, kept
 //     in shared memory (thread-private slots) across the distances, and
@@ -130,8 +131,12 @@ __device__ __forceinline__ float2 h_masked(int k, int col, int rp, int cp,
 // slot c in a thread-private array of shared memory is [c * blockDim + t]:
 // `spec` (the spectrum, when D > 1) and `work` (the spectrum times H, in
 // the exchange's space, which no FFT is using at the time).
+#ifdef LHG_FFT_RADICES
+template <int E, int kCpb>  // kCpb: one of the plan's compiled column counts
+#else
 template <int E>
-__global__ void __launch_bounds__(E > 32 ? 256 : 512)  // max_block_threads(E)
+#endif
+__global__ void __launch_bounds__(LHG_FFT_LAUNCH_BOUND(E))  // max_block_threads(E)
 asm_row_pass_kernel(const float2* __restrict__ x,      // (P, rows|rp, cp)
                     float2* __restrict__ out,          // (P, D, rows, cp)
                     const float* __restrict__ wl2,     // (P,)
@@ -143,9 +148,14 @@ asm_row_pass_kernel(const float2* __restrict__ x,      // (P, rows|rp, cp)
                     int from_spectrum, int per_plane, float inv_rp_pitch,
                     float inv_cp_pitch, float two_pi_signed) {
   extern __shared__ float2 smem[];
+#ifdef LHG_FFT_RADICES
+  cpb = kCpb;  // compiled in: the slots' and the exchange's strides are constants
+  constexpr int nt = kCpb * FftPlan::threads;
+#else
+  const int nt = blockDim.x;
+#endif
   const int T = plan.threads;
   const int t = threadIdx.x;
-  const int nt = blockDim.x;
   const int l = t % cpb;
   const int j = t / cpb;
   const int p = blockIdx.y;
@@ -176,18 +186,40 @@ asm_row_pass_kernel(const float2* __restrict__ x,      // (P, rows|rp, cp)
     fft_line<E>(v, plan, j, smem + l, cpb, twiddle, sync);
   }
   __syncthreads();  // the forward transform's exchange reads are done
-  // the spectrum times the mask, once for all distances
+  // the spectrum times the mask, once for all distances: in registers, or
+  // where the values take most of them (a mixed-radix plan of E >= 48) to
+  // the slots first and then the mask a value at a time, since its loads
+  // issued beside the 2E registers of v spilled at E = 60
+#ifdef LHG_FFT_RADICES
+  constexpr bool kMaskFromSlots = E >= 48;
+#else
+  constexpr bool kMaskFromSlots = false;
+#endif
+  if constexpr (kMaskFromSlots) {
 #pragma unroll
-  for (int c = 0; c < E; ++c) {
-    const float m = mask != nullptr ? mask[static_cast<size_t>(j + c * T) * cp + colc] : 1.0f;
-    spec[c * nt + t] = mask != nullptr ? make_float2(__fmul_rn(v[c].x, m), __fmul_rn(v[c].y, m))
-                                       : v[c];
+    for (int c = 0; c < E; ++c) spec[c * nt + t] = v[c];
+    if (mask != nullptr) {
+#pragma unroll 4
+      for (int c = 0; c < E; ++c) {
+        const float m = mask[static_cast<size_t>(j + c * T) * cp + colc];
+        const float2 s = spec[c * nt + t];
+        spec[c * nt + t] = make_float2(__fmul_rn(s.x, m), __fmul_rn(s.y, m));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < E; ++c) {
+      const float m = mask != nullptr ? mask[static_cast<size_t>(j + c * T) * cp + colc] : 1.0f;
+      spec[c * nt + t] = mask != nullptr ? make_float2(__fmul_rn(v[c].x, m), __fmul_rn(v[c].y, m))
+                                         : v[c];
+    }
   }
 
   const float wl2_p = wl2[p];
   const float scale = 1.0f / static_cast<float>(rp);
   for (int d = 0; d < num_d; ++d) {
     if (d > 0) __syncthreads();  // the last inverse transform's exchange reads are done
+    const int jd = lhg::hopper::loop_index(j);  // this distance's (fft_hopper.cuh)
     const float sz = __fmul_rn(two_pi_signed, per_plane ? dists[p] : dists[d]);
     // (S * mask) * H, conjugated for the inverse transform, one value at a
     // time (few registers); H is skipped where S * mask is 0
@@ -197,19 +229,19 @@ asm_row_pass_kernel(const float2* __restrict__ x,      // (P, rows|rp, cp)
       float2 z = make_float2(0.f, 0.f);
       if (s.x != 0.0f || s.y != 0.0f) {
         const float2 sh =
-            cmul(s, h_transfer(j + c * T, colc, rp, cp, wl2_p, sz, inv_rp_pitch, inv_cp_pitch));
+            cmul(s, h_transfer(jd + c * T, colc, rp, cp, wl2_p, sz, inv_rp_pitch, inv_cp_pitch));
         z = make_float2(sh.x, -sh.y);
       }
       work[c * nt + t] = z;
     }
 #pragma unroll
     for (int c = 0; c < E; ++c) v[c] = work[c * nt + t];
-    fft_line<E>(v, plan, j, smem + l, cpb, twiddle, sync);
+    fft_line<E>(v, plan, jd, smem + l, cpb, twiddle, sync);
     if (valid) {
       float2* op = out + (static_cast<size_t>(p) * num_d + d) * rows * cp + col;
 #pragma unroll
       for (int c = 0; c < E; ++c) {
-        const int r = j + c * T - r0;
+        const int r = jd + c * T - r0;
         if (r >= 0 && r < rows) {
           op[static_cast<size_t>(r) * cp] = make_float2(v[c].x * scale, -v[c].y * scale);
         }
@@ -223,8 +255,12 @@ asm_row_pass_kernel(const float2* __restrict__ x,      // (P, rows|rp, cp)
 // [c * blockDim + t]: `work` (the spectrum of the current distance, then
 // the product or the conjugated sum that the inverse takes, in the
 // exchange's space) and `acc` (the distance sum, when D > 1).
+#ifdef LHG_FFT_RADICES
+template <int E, int kCpb>  // kCpb: one of the plan's compiled column counts
+#else
 template <int E>
-__global__ void __launch_bounds__(E > 32 ? 256 : 512)  // max_block_threads(E)
+#endif
+__global__ void __launch_bounds__(LHG_FFT_LAUNCH_BOUND(E))  // max_block_threads(E)
 asm_row_adjoint_kernel(const float2* __restrict__ g,      // (P, D, rows, cp)
                        float2* __restrict__ out,          // (P, rows|rp, cp)
                        const float* __restrict__ wl2,     // (P,)
@@ -236,9 +272,14 @@ asm_row_adjoint_kernel(const float2* __restrict__ g,      // (P, D, rows, cp)
                        int from_spectrum, int per_plane, float inv_rp_pitch,
                        float inv_cp_pitch, float two_pi_signed) {
   extern __shared__ float2 smem[];
+#ifdef LHG_FFT_RADICES
+  cpb = kCpb;  // compiled in: the slots' and the exchange's strides are constants
+  constexpr int nt = kCpb * FftPlan::threads;
+#else
+  const int nt = blockDim.x;
+#endif
   const int T = plan.threads;
   const int t = threadIdx.x;
-  const int nt = blockDim.x;
   const int l = t % cpb;
   const int j = t / cpb;
   const int p = blockIdx.y;
@@ -256,13 +297,14 @@ asm_row_adjoint_kernel(const float2* __restrict__ g,      // (P, D, rows, cp)
 
   float2 v[E];
   for (int d = 0; d < num_d; ++d) {
+    const int jd = lhg::hopper::loop_index(j);  // this distance's (fft_hopper.cuh)
     const float2* gp = g + (static_cast<size_t>(p) * num_d + d) * rows * cp + colc;
 #pragma unroll
     for (int c = 0; c < E; ++c) {
-      const int r = j + c * T - r0;
+      const int r = jd + c * T - r0;
       v[c] = (r >= 0 && r < rows) ? gp[static_cast<size_t>(r) * cp] : make_float2(0.f, 0.f);
     }
-    fft_line<E>(v, plan, j, smem + l, cpb, twiddle, sync);
+    fft_line<E>(v, plan, jd, smem + l, cpb, twiddle, sync);
     __syncthreads();  // the exchange's reads are done: its space holds `work`
 #pragma unroll
     for (int c = 0; c < E; ++c) work[c * nt + t] = v[c];
@@ -272,7 +314,7 @@ asm_row_adjoint_kernel(const float2* __restrict__ g,      // (P, D, rows, cp)
     // skipped where the mask is 0; summed over the distances
 #pragma unroll 2
     for (int c = 0; c < E; ++c) {
-      const int k = j + c * T;
+      const int k = jd + c * T;
       const float m = masked ? mask[static_cast<size_t>(k) * cp + colc] : 1.0f;
       float2 a = make_float2(0.f, 0.f);
       if (m != 0.0f) {
@@ -326,12 +368,11 @@ bool valid_args(const Args& a) {
          a.num_planes <= 65535 && (!a.per_plane || a.num_d == 1);
 }
 
-// K1 (adjoint false) or K2 (true): cpb columns of a plane to a block, the
-// exchange's space (at least rp values a column) and, when D > 1, a second
-// array of rp values a column in shared memory.
-template <int E>
-int launch_row(bool adjoint, const Args& a, const FftPlan& plan, int cpb, cudaStream_t stream) {
-  const auto kernel = adjoint ? asm_row_adjoint_kernel<E> : asm_row_pass_kernel<E>;
+// K1 or K2 (`kernel`): cpb columns of a plane to a block, the exchange's
+// space (at least rp values a column) and, when D > 1, a second array of rp
+// values a column in shared memory.
+template <class Kernel>
+int launch_kernel(Kernel kernel, const Args& a, const FftPlan& plan, int cpb, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(cpb) *
                       ((plan.buffer > a.rp ? plan.buffer : a.rp) + (a.num_d > 1 ? a.rp : 0)) * sizeof(float2);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -344,6 +385,35 @@ int launch_row(bool adjoint, const Args& a, const FftPlan& plan, int cpb, cudaSt
       a.inv_cp_pitch, a.two_pi_signed);
   return static_cast<int>(cudaGetLastError());
 }
+
+// K1 (adjoint false) or K2 (true); a mixed-radix library has an
+// instantiation for each column count its plan compiled in.
+#ifdef LHG_FFT_RADICES
+template <int E, int kCpb>
+int launch_columns(bool adjoint, const Args& a, const FftPlan& plan, cudaStream_t stream) {
+  return launch_kernel(adjoint ? asm_row_adjoint_kernel<E, kCpb> : asm_row_pass_kernel<E, kCpb>, a,
+                       plan, kCpb, stream);
+}
+
+template <int E>
+int launch_row(bool adjoint, const Args& a, const FftPlan& plan, int cpb, cudaStream_t stream) {
+  using lhg::hopper::compiled::kK1Columns;
+  using lhg::hopper::compiled::kK1KeptColumns;
+  if constexpr (kK1Columns > 0) {
+    if (cpb == kK1Columns) return launch_columns<E, kK1Columns>(adjoint, a, plan, stream);
+  }
+  if constexpr (kK1KeptColumns > 0 && kK1KeptColumns != kK1Columns) {
+    if (cpb == kK1KeptColumns) return launch_columns<E, kK1KeptColumns>(adjoint, a, plan, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#else
+template <int E>
+int launch_row(bool adjoint, const Args& a, const FftPlan& plan, int cpb, cudaStream_t stream) {
+  return launch_kernel(adjoint ? asm_row_adjoint_kernel<E> : asm_row_pass_kernel<E>, a, plan, cpb,
+                       stream);
+}
+#endif
 
 Args make_args(const void* in, void* out, const void* wl2, const void* dists,
                const void* mask, const void* twiddle, int num_planes, int rows,
@@ -367,6 +437,9 @@ int launch(bool adjoint, const void* in, void* out, const void* wl2, const void*
                            cp, rp, r0, num_d, from_spectrum, per_plane,
                            inv_rp_pitch, inv_cp_pitch, two_pi_signed);
   const FftPlan plan = lhg::hopper::plan_from_ints(plan_ints);
+#ifdef LHG_FFT_RADICES
+  if (!lhg::hopper::plan_ints_match(plan_ints)) return static_cast<int>(cudaErrorInvalidValue);
+#endif
   if (!valid_args(a) || plan.n != rp || plan.elems * plan.threads != rp || cpb < 1 ||
       (cpb & (cpb - 1)) != 0 || cpb * plan.threads > max_block_threads(plan.elems)) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -13,10 +13,11 @@
 // adjoint of an unnormalised forward transform is the unnormalised inverse.
 // The inverse runs as conj(F(conj(x))), folded into the load and the store.
 //
-// Lengths: every n = 2^a 3^b 5^c up to 16384 that has a plan
-// (fft_plan.py:make_plan): powers of two on E = min(n, 32), the others on
-// the mixed-radix plans of LHG_FFT_MIXED_ELEMS (1280 = 40 * 8 * 4, 768 =
-// 48 * 16), each a DFT of length n itself, never padded to a power of two.
+// Lengths: every n = 2^a 3^b 5^c up to 16384 (fft_plan.py:make_plan):
+// powers of two on E = min(n, 32) in one library, each other length on its
+// own library with its plan compiled in (1280 = 16 * 5 * 16 on E = 16, 768
+// = 16 * 3 * 16), each a DFT of length n itself, never padded to a power of
+// two.
 //
 // Bound: a pass reads and writes the planes once, 2 * 8 bytes per element;
 // at the training shapes (12 planes of 1024 x 1024) that is 201 MB, ~0.06
@@ -29,9 +30,10 @@
 // 1024-point line is one warp, and its exchange needs only __syncwarp.
 // Along axis -2 (lines strided by C) the block's lpb neighbouring columns
 // are interleaved across the lanes, so each row is read and written as a
-// segment of lpb * 8 bytes (64 bytes at n = 1024), and the exchange is
-// interleaved too (position q of column l at q * lpb + l) under the
-// block's barrier.  Each thread issues all E of its loads before it
+// segment of lpb * 8 bytes (64 bytes at n = 1024, and at every mixed-radix
+// length whose 8 lines fit a block: up to 1024 threads and 227 KB, one
+// block an SM where two do not fit), and the exchange is interleaved too
+// (position q of column l at q * lpb + l) under the block's barrier.  Each thread issues all E of its loads before it
 // computes, so 8 KB per warp are in flight.  Along axis -1 a line's
 // exchange needs only __syncwarp where its T threads lie in one warp
 // (fft_hopper.cuh:line_in_warp); else the block's.
@@ -49,12 +51,15 @@ using lhg::hopper::fft_line;
 using lhg::hopper::max_block_threads;
 
 template <int E, bool kColumns>
-__global__ void __launch_bounds__(E > 32 ? 256 : 512)  // max_block_threads(E)
+__global__ void __launch_bounds__(LHG_FFT_K3_LAUNCH_BOUND(E, kColumns))  // max_ or line_block_threads(E)
 fft_axis_kernel(const float2* __restrict__ x, float2* __restrict__ y,
                 const float2* __restrict__ twiddle, const __grid_constant__ FftPlan plan,
                 int lines, int lpb, long long line_stride, long long elem_stride,
                 long long plane_stride, int inverse, float scale) {
   extern __shared__ float2 smem[];
+#ifdef LHG_FFT_RADICES
+  if (kColumns) lpb = lhg::hopper::compiled::kK3Columns;  // a constant: constant strides
+#endif
   const int T = plan.threads;
   const int t = threadIdx.x;
   const int l = kColumns ? t % lpb : t / T;
@@ -111,12 +116,19 @@ extern "C" int k3_fft_axis(const void* x, void* y, const void* twiddle, const in
                            int planes, int rows, int cols, int axis_last, int lpb, int inverse,
                            float scale, int device, void* stream) {
   const FftPlan plan = lhg::hopper::plan_from_ints(plan_ints);
+#ifdef LHG_FFT_RADICES
+  if (!lhg::hopper::plan_ints_match(plan_ints)) return static_cast<int>(cudaErrorInvalidValue);
+#endif
   const int n = axis_last ? cols : rows;
   const int lines = axis_last ? rows : cols;
+  const int limit = axis_last ? lhg::hopper::line_block_threads(plan.elems) : max_block_threads(plan.elems);
   if (plan.n != n || plan.elems * plan.threads != n || lpb < 1 || (lpb & (lpb - 1)) != 0 ||
-      lpb * plan.threads > max_block_threads(plan.elems) || planes > 65535) {
+      lpb * plan.threads > limit || planes > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+#ifdef LHG_FFT_RADICES
+  if (!axis_last && lpb != lhg::hopper::compiled::kK3Columns) return static_cast<int>(cudaErrorInvalidValue);
+#endif
   const long long line_stride = axis_last ? cols : 1;
   const long long elem_stride = axis_last ? 1 : cols;
   const long long plane_stride = static_cast<long long>(rows) * cols;

@@ -20,9 +20,21 @@ two axes chained and independent, ``fft2``, and a train step's 2 ``fft2``
 + 1 adjoint).  The differences say what each part of the work costs.  An
 ablated build computes a wrong result; nothing but this script loads one.
 
-It uses only what the package has offered since K2's redesign, so a copy
-of it times an earlier checkout too: two checkouts run in turns (A, B, B,
-A) in one call compare on one card.
+Then the mixed-radix plans, as shipped: K3's one-axis pass at 768, 1280,
+1728, 2880 and 5000 along each axis on (8, 2048, n) / (8, n, 2048) planes
+(TB/s of its own bytes, beside ``torch.fft``), K3's two ``fft2``s of the
+paths, (12, 1280, 768) and (3, 2880, 5000), and K1's row pass and K2's row
+adjoint at rp 1280, 1728 and 2880 in the modes ``mixed_radix_smoke.py``'s
+JSON entries time.  Last, where the package has them (``fft_plan.CHOSEN``),
+every candidate plan of :data:`MIXED_CANDIDATES` in turn, each a library
+of its own: the same passes, each against ``torch.fft`` or K1's plain
+version, the fastest being the plan ``fft_plan.CHOSEN`` ships.
+
+It uses only what the package has offered since K2's redesign (the
+mixed-radix section: since the mixed-radix plans), so a copy of it times an
+earlier checkout too: two checkouts run in turns (A, B, B, A) in one call
+compare on one card.  ``--mixed`` runs the mixed-radix sections alone,
+``--lengths`` at the lengths given, ``--shipped`` without the candidates.
 
 For each build it also prints ptxas' registers and spills, and the blocks
 an SM holds as the launch asks for them, derived from those registers, the
@@ -48,6 +60,27 @@ DISTANCES = (4e-4, 7e-4, 1e-3)  # generatePOH's focal stack
 TRAIN_DISTANCES = np.linspace(-4e-4, 0.0, 21)[:-1]  # trainingModel.py's 20
 K1_BUILDS = ((), ("LHG_ABLATE_H",), ("LHG_ABLATE_FFT",), ("LHG_ABLATE_H", "LHG_ABLATE_FFT"))
 K3_BUILDS = ((), ("LHG_ABLATE_FFT",))
+# the mixed-radix lengths of the paths, and each one's candidate plans
+# (E, radices): first the fewest-passes plan the compiled plans replaced (E
+# a multiple of every radix, up to 60 values a thread), then plans of fewer
+# values a thread (one more exchange, or guarded middle passes) and, at
+# 2880, of E = 60 in smaller radices
+MIXED_LENGTHS = (768, 1280, 1728, 2880, 5000)
+MIXED_CANDIDATES = {
+    768: ((48, (48, 16)), (16, (16, 3, 16)), (16, (16, 6, 8))),
+    1280: ((40, (40, 8, 4)), (20, (20, 16, 4)), (16, (16, 5, 16)), (16, (8, 10, 16))),
+    1728: ((24, (24, 24, 3)), (24, (24, 3, 24)), (12, (12, 12, 12)), (27, (9, 8, 8, 3))),
+    2880: ((60, (60, 12, 4)), (60, (12, 20, 12)), (60, (20, 12, 12)), (60, (12, 5, 4, 12)),
+           (60, (15, 4, 4, 12)), (60, (10, 6, 4, 12)), (60, (6, 10, 4, 12)), (30, (30, 16, 6)),
+           (24, (24, 5, 24))),
+    5000: ((50, (50, 50, 2)), (25, (25, 8, 25)), (20, (20, 25, 10)), (40, (40, 25, 5))),
+}
+# the modes of K1's row pass and K2's row adjoint timed at each mixed rp
+# (mixed_radix_smoke.py's JSON entries: the portrait forward, the 1080p step,
+# 4K's AP2POH)
+ROW_PASS_MODES = {1280: ("conj_h", "field D=3"), 1728: ("conj_h", "from_spectrum+per_plane"),
+                  2880: ("conj_h",)}
+ROW_ADJOINT_MODES = {1280: ("conj_h",), 1728: ("conj_h", "from_spectrum+per_plane"), 2880: ("conj_h",)}
 # Hopper SM: registers, shared memory (1 KB of it reserved per block),
 # threads, blocks; registers are allocated per warp in units of 256
 SM_REGS, SM_SMEM, SM_THREADS, SM_BLOCKS = 65536, 233472, 2048, 32
@@ -165,7 +198,157 @@ def _k2_calls(dev):
     return calls
 
 
-def main() -> int:
+@contextlib.contextmanager
+def _plan_chosen(n, elems, radices):
+    """Inside the block the wrappers take the plan (elems, radices) for
+    length ``n`` (and so load its library)."""
+    from .ops.cuda import fft, fft_plan, spectral
+
+    caches = (fft_plan.make_plan, fft_plan.device_plan, fft.supported_length, spectral.supported)
+    saved = fft_plan.CHOSEN.get(n)
+    fft_plan.CHOSEN[n] = (elems, tuple(radices))
+    for cache in caches:
+        cache.cache_clear()
+    try:
+        yield fft_plan.make_plan(n)
+    finally:
+        if saved is None:
+            del fft_plan.CHOSEN[n]
+        else:
+            fft_plan.CHOSEN[n] = saved
+        for cache in caches:
+            cache.cache_clear()
+
+
+def _mixed_report(log, plan):
+    """Registers, spills and blocks an SM of a plan's K3 kernels (axis -1,
+    -2) or K1's and K2's (D = 1), from the library's ptxas report."""
+    from .ops.cuda import fft, spectral
+
+    cells = []
+    for label, entry, lines, smem_line in (
+            ("K3 -1", f"fft_axis_kernelILi{plan.elems}ELb0E", fft._pick_lpb(plan, False), plan.buffer),
+            ("K3 -2", f"fft_axis_kernelILi{plan.elems}ELb1E", fft._pick_lpb(plan, True), plan.buffer),
+            ("K1", f"asm_row_pass_kernelILi{plan.elems}E", spectral._pick_cpb(plan, False),
+             max(plan.buffer, plan.n)),
+            ("K2", f"asm_row_adjoint_kernelILi{plan.elems}E", spectral._pick_cpb(plan, False),
+             max(plan.buffer, plan.n))):
+        if lines is None:
+            continue
+        # a mixed-radix K1 / K2 instantiation per column count (ILi<E>ELi<cpb>EE)
+        report = _ptxas(log, f"{entry}Li{lines}EE") or _ptxas(log, entry)
+        if report is None:
+            continue
+        regs, spill = report
+        cells.append(f"{label} {regs} reg {spill} B spill, {lines} x {plan.threads} threads, "
+                     f"{_blocks_per_sm(regs, lines * plan.threads, lines * smem_line * 8)} blocks/SM")
+    return "; ".join(cells)
+
+
+def _mixed_timings(dev, card, candidates, lengths=MIXED_LENGTHS):
+    """The mixed-radix passes of the paths at ``lengths``, timed by CUDA
+    events (mean of 20), once for the plans as shipped (``candidates``
+    False) or once per candidate plan of :data:`MIXED_CANDIDATES`."""
+    from . import mixed_radix_smoke
+    from .ops.cuda import build, fft, fft_plan, spectral
+    from .train_smoke import _random_complex
+    from .utils.cuda_measure import check_rel, cuda_ms
+
+    rng = np.random.default_rng(3)
+
+    def plans(n):
+        if not candidates:
+            return [None]
+        return list(MIXED_CANDIDATES[n])
+
+    def chosen(n, plan):
+        return contextlib.nullcontext(fft_plan.make_plan(n)) if plan is None else _plan_chosen(n, *plan)
+
+    def label(plan):
+        return f"{plan.elems}: {'*'.join(map(str, plan.radices))}, {plan.threads} threads"
+
+    jobs = []
+    for n in lengths:
+        for p in plans(n):
+            with chosen(n, p) as plan:
+                for name in (fft.KERNEL_NAME,) + ((spectral.KERNEL_NAME,) if n in ROW_PASS_MODES else ()):
+                    jobs.append((name, fft_plan.build_defines(plan)))
+    logs = {key: res.log for key, res in build.build_jobs(jobs).items()}
+
+    def log_of(plan):
+        defines = fft_plan.build_defines(plan)
+        return "\n".join(logs.get((name, defines), "") for name in (fft.KERNEL_NAME, spectral.KERNEL_NAME))
+
+    for n in lengths:
+        for axis in (-1, -2):
+            shape = (8, 2048, n) if axis == -1 else (8, n, 2048)
+            x = _random_complex(rng, shape, dev)
+            nbytes = 2 * x.numel() * 8
+            lib = cuda_ms(lambda: torch.fft.fft(x, dim=axis), iters=20, warmup=3)
+            print(f"  K3 n {n} axis {axis} {shape}: torch.fft {lib:.4f} ms, {nbytes / lib / 1e9:.2f} TB/s "
+                  f"[{card}]", flush=True)
+            for p in plans(n):
+                with chosen(n, p) as plan:
+                    y, want = fft.fft_axis(x, axis, False, 1.0), torch.fft.fft(x, dim=axis)
+                    err = check_rel(f"K3 n {n} axis {axis}", y.real, y.imag, want.real, want.imag)
+                    del y, want
+                    ms = cuda_ms(lambda: fft.fft_axis(x, axis, False, 1.0), iters=20, warmup=3)
+                    print(f"    K3 n {n} axis {axis} plan {label(plan)}: {ms:.4f} ms, "
+                          f"{nbytes / ms / 1e9:.2f} TB/s, max abs err {err:.1e}; {_mixed_report(log_of(plan), plan)} "
+                          f"[{card}]", flush=True)
+            del x
+            torch.cuda.empty_cache()
+    if not candidates:
+        for shape in [s for s in ((12, 1280, 768), (3, 2880, 5000)) if set(s[1:]) <= set(lengths)]:
+            x = _random_complex(rng, shape, dev)
+            ms = cuda_ms(lambda: fft.fft2(x), iters=20, warmup=3)
+            lib = cuda_ms(lambda: torch.fft.fft2(x), iters=20, warmup=3)
+            print(f"  K3 fft2 {shape}: {ms:.4f} ms; torch.fft.fft2 {lib:.4f} ms [{card}]", flush=True)
+            del x
+            torch.cuda.empty_cache()
+    for rp, modes in ROW_PASS_MODES.items():
+        if rp not in lengths:
+            continue
+        rows, cols, pad, pad_cols, _ = mixed_radix_smoke.GRIDS[rp]
+        for kind, mode_list in (("K1", modes), ("K2", ROW_ADJOINT_MODES[rp])):
+            for mode in mode_list:
+                fr, fi, wl2, dvec, mask, kcfg = args = mixed_radix_smoke._case(rp, mode, dev, rng)
+                if kind == "K1":
+                    x = torch.complex(fr, fi)
+                    if not kcfg[2]:
+                        x = torch.fft.fft(torch.nn.functional.pad(x, (pad_cols, pad_cols)), dim=-1)
+                    want = spectral.propagate_planes_reference(*args)
+                else:
+                    g = _random_complex(rng, (fr.shape[0], kcfg[4], rows, cols), dev)
+                    gr, gi = g.real.contiguous(), g.imag.contiguous()
+                    x = torch.fft.fft(torch.nn.functional.pad(g, (pad_cols, pad_cols)), dim=-1)
+                    want = spectral.propagate_planes_adjoint_reference(gr, gi, wl2, dvec, mask, kcfg)
+                for p in plans(rp):
+                    with chosen(rp, p) as plan:
+                        if kind == "K1":
+                            err = check_rel(f"K1 {mode} rp {rp}", *spectral.propagate_planes(*args), *want)
+                            ms = cuda_ms(lambda: spectral.row_pass(x, wl2, dvec, mask, kcfg), iters=20, warmup=3)
+                        else:
+                            err = check_rel(f"K2 {mode} rp {rp}", *spectral._adjoint_cuda(gr, gi, wl2, dvec, mask, kcfg),
+                                            *want)
+                            ms = cuda_ms(lambda: spectral.row_adjoint(x, wl2, dvec, mask, kcfg), iters=20, warmup=3)
+                        keep = kcfg[4] > 1
+                        print(f"    {kind} rp {rp} {mode} ({fr.shape[0]} planes) plan {label(plan)}: {ms:.4f} ms "
+                              f"alone, {spectral._pick_cpb(plan, keep)} columns a block, max abs err {err:.1e}; "
+                              f"{_mixed_report(log_of(plan), plan)} [{card}]", flush=True)
+                del args, x, want
+                torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="what holds K1, K2 and K3 back, by ablation")
+    ap.add_argument("--mixed", action="store_true", help="only the mixed-radix sections")
+    ap.add_argument("--lengths", type=int, nargs="*", default=MIXED_LENGTHS,
+                    help="the mixed-radix lengths to time (default: the paths')")
+    ap.add_argument("--shipped", action="store_true", help="the plans as shipped only, no candidates")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("fft_ablation: no CUDA device", file=sys.stderr)
         return 1
@@ -176,6 +359,8 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda")
+    if args.mixed:
+        return _mixed(dev, card, args.lengths, args.shipped)
     # every build at once, one nvcc each
     jobs = [(name, defines) for name, builds in ((spectral.KERNEL_NAME, K1_BUILDS),
                                                  (fft.KERNEL_NAME, K3_BUILDS)) for defines in builds]
@@ -285,6 +470,19 @@ def main() -> int:
     }
     print("  K3 " + "; ".join(f"{name} {cuda_ms(fn, iters=50, warmup=5):.4f}" for name, fn in cells.items())
           + f" [{card}]", flush=True)
+    del x, y
+    torch.cuda.empty_cache()
+    return _mixed(dev, card, args.lengths, args.shipped)
+
+
+def _mixed(dev, card, lengths, shipped) -> int:
+    from .ops.cuda import fft_plan
+
+    print("Mixed-radix plans as shipped, ms by CUDA events (mean of 20)", flush=True)
+    _mixed_timings(dev, card, False, lengths)
+    if hasattr(fft_plan, "CHOSEN") and not shipped:
+        print("Mixed-radix candidate plans (fft_ablation.MIXED_CANDIDATES), each its own library", flush=True)
+        _mixed_timings(dev, card, True, lengths)
     return 0
 
 

@@ -39,7 +39,7 @@ Each run's K1, K2 and K3 launches are held to what the code makes.  At
 1080p (1728 x 3048) K1 and K2 run on the mixed-radix plan of rp = 1728
 (24 * 24 * 3) and K3 declines the grid (3048 = 8 * 3 * 127 has no plan),
 so its 2-D transforms run ``torch.fft``; the 4K grid (2880 x 5000) runs
-K1 (rp 2880 = 60 * 12 * 4) and K3 (5000 = 50 * 50 * 2) on both axes.
+K1 (rp 2880 = 12 * 20 * 12 on E = 60) and K3 (5000 = 40 * 25 * 5) on both axes.
 """
 
 from __future__ import annotations

@@ -691,7 +691,7 @@ def main(argv=None) -> int:
 
 def build_defines_of_the_paths():
     """The K1 / K3 libraries the paths of this slice load: the powers of
-    two, and the E of each mixed-radix length they run."""
+    two, and the plan of each mixed-radix length they run."""
     from .ops.cuda import fft_plan
 
     defines = {()} | {fft_plan.build_defines(fft_plan.make_plan(n)) for n in (768, 1280, 1728, 2880, 5000)}

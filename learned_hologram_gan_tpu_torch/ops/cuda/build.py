@@ -9,8 +9,9 @@ import; :func:`build_jobs` runs one nvcc per (source, macros) pair, as many
 at once as the host has cores.
 ``defines`` adds preprocessor macros (and so a library of another hash):
 K1's and K3's wrappers load one library for the power-of-two FFT plans and
-one per E of the others (``fft_plan.build_defines``); ``fft_ablation.py``
-and ``k5_ablation.py`` ask for measurement builds.
+one per plan of any other length, its plan compiled in
+(``fft_plan.build_defines``); ``fft_ablation.py`` and ``k5_ablation.py``
+ask for measurement builds and candidate plans.
 """
 
 from __future__ import annotations

@@ -32,11 +32,13 @@ KERNEL_NAME = "k3_fft"
 
 
 def _pick_lpb(plan: fft_plan.FftPlan, columns: bool) -> Optional[int]:
-    """Lines per block: along axis -1 blocks of 128 threads or one line;
-    along axis -2 at least 8 interleaved columns (64-byte row segments).
-    At n = 1024 that is 4 lines (34 KB) along axis -1 and 8 columns (68 KB)
-    along -2."""
-    return fft_plan.lines_per_block(plan, 8 if columns else 1, plan.buffer * 8)
+    """Lines per block: along axis -1 blocks of 128 threads or one line
+    (within ``plan.line_threads``); along axis -2 at least 8 interleaved
+    columns (64-byte row segments) where they fit.  At n = 1024 that is 4
+    lines (34 KB) along axis -1 and 8 columns (68 KB) along -2."""
+    if columns:
+        return fft_plan.k3_columns(plan)
+    return fft_plan.lines_per_block(plan, 1, plan.buffer * 8, plan.line_threads)
 
 
 @functools.lru_cache(maxsize=None)

@@ -50,13 +50,9 @@ Cfg = Tuple[float, bool, bool, bool, int, int, int, Optional[Tuple[int, int, int
 
 
 def _pick_cpb(plan: fft_plan.FftPlan, keep_spectrum: bool) -> Optional[int]:
-    """K1's and K2's columns per block: at least 8 (64-byte row segments).
-    A column takes its exchange, which also holds the thread-private slots
-    of S * H (at least rp values), and a second array of rp values when
-    D > 1 (K1's spectrum, K2's distance sum).  At rp = 1024: 8 columns, 256
-    threads, 68 KB; with the second array 4 columns, 67 KB."""
-    values = max(plan.buffer, plan.n) + (plan.n if keep_spectrum else 0)
-    return fft_plan.lines_per_block(plan, 8, values * 8)
+    """K1's and K2's columns per block (:func:`.fft_plan.k1_columns`): at
+    least 8 (64-byte row segments) where they fit."""
+    return fft_plan.k1_columns(plan, keep_spectrum)
 
 
 @functools.lru_cache(maxsize=None)

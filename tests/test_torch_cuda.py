@@ -37,12 +37,15 @@ MAX_REL, P999_REL = 1e-4, 1e-5
 
 @pytest.fixture(scope="module")
 def _fft_libraries():
-    """K1's and K3's libraries, every FFT plan's, built in parallel once
-    (each mixed-radix E is a library of its own, fft_plan.build_defines)."""
+    """K1's and K3's libraries, built in parallel once (each mixed-radix
+    plan is a library of its own, fft_plan.build_defines): K3's for every
+    length it takes, K1's for the powers of two and the padded rows of
+    GRIDS_MIXED."""
     from learned_hologram_gan_tpu_torch.ops.cuda import build
 
-    build.build_jobs([(name, d) for name in (spectral.KERNEL_NAME, fft.KERNEL_NAME)
-                      for d in fft_plan.all_build_defines()])
+    k3 = [()] + [fft_plan.build_defines(fft_plan.make_plan(n)) for n in K3_MIXED_LENGTHS]
+    k1 = [()] + [fft_plan.build_defines(fft_plan.make_plan(rows + 2 * pad)) for rows, _, pad, _, _ in GRIDS_MIXED]
+    build.build_jobs([(fft.KERNEL_NAME, d) for d in k3] + [(spectral.KERNEL_NAME, d) for d in k1])
 
 
 @pytest.fixture
@@ -155,10 +158,11 @@ def test_k2_matches_autograd_through_plain_version(device, rows, cols, pad, batc
 
 
 # (rows, cols, pad, batch, pad_cols): padded rows rp of lengths that are
-# not powers of two, one mixed-radix plan each: 12 (E = 12, one pass), 96
-# (24 * 4), 384 (48 * 8), 768 (48 * 16), the portrait 1280 (40 * 8 * 4;
-# 640 x 384 at pads 320 / 192, the 1280 x 768 grid), 1728 (1080p's rp; 24 *
-# 24 * 3), 2880 (60 * 12 * 4) and 5000 (50 * 50 * 2), with ragged column counts
+# not powers of two, one mixed-radix plan (and library) each: 12 (E = 12,
+# one pass), 96 (4 * 24 on E = 24), 384 (2 * 8 * 24), 768 (16 * 3 * 16), the
+# portrait 1280 (16 * 5 * 16 on E = 16, a guarded middle pass; 640 x 384 at
+# pads 320 / 192, the 1280 x 768 grid), 1728 (1080p's rp; 24 * 24 * 3),
+# 2880 (12 * 20 * 12 on E = 60) and 5000 (40 * 25 * 5), with ragged column counts
 GRIDS_MIXED = [
     (8, 8, 2, 2, 3),
     (40, 23, 28, 1, 5),
@@ -221,7 +225,7 @@ def test_k3_matches_torch_fft(device, shape, inverse):
 
 K3_LENGTHS = [2**k for k in range(1, 15)]
 # every other 2*3*5-smooth length up to 16384 that K3 takes: each mixed-radix
-# plan (fft_plan.MIXED_ELEMS, 1 to 9 passes); pure Python, the same on every host
+# plan (a library each, 1 to 6 passes); pure Python, the same on every host
 K3_MIXED_LENGTHS = [n for n in range(2, fft_plan.MAX_LENGTH + 1)
                     if n & (n - 1) and fft_plan.is_smooth(n) and fft.supported_length(n)]
 

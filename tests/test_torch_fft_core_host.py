@@ -10,15 +10,18 @@ g++ (C++20) compiles it with a few definitions standing in for CUDA's
 ``__syncthreads``/``__syncwarp`` a ``std::barrier`` of the line's threads,
 the exchange in an ordinary array.  The plans and twiddles are the
 wrappers' (``fft_plan.plan_ints``), and each length runs in the build the
-wrappers load for it (the power-of-two library, or ``-DLHG_FFT_ELEMS=E``),
-so what runs is the kernels' code path for every power of two and
-mixed-radix plan listed, up to the compiler.
-Skips where g++ is absent.
+wrappers load for it (the power-of-two library, or its own plan's with
+``fft_plan.build_defines``: the radices, gaps and E compiled in), so what
+runs is the kernels' code path for every power of two and mixed-radix plan
+listed, guarded butterflies of the middle passes included, up to the
+compiler; then every candidate plan ``fft_ablation.py`` times on the card.
+The libraries build in parallel, once each.  Skips where g++ is absent.
 
 Tolerance: as ``test_torch_fft_plan.py``'s emulation, <= 1e-5 of
 max |ref| against float64 ``np.fft``.
 """
 
+import concurrent.futures
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,11 +29,14 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from learned_hologram_gan_tpu_torch.fft_ablation import MIXED_CANDIDATES
 from learned_hologram_gan_tpu_torch.ops.cuda import fft_plan
 
 CSRC = Path(fft_plan.__file__).resolve().parents[2] / "csrc"
 LENGTHS = [2, 32, 64, 1024, 16384, 3, 5, 6, 12, 24, 48, 96, 384, 768, 1280, 1728, 2880, 5000,
            75, 12800]
+# every candidate plan of the paths' lengths, (n, E, radices)
+CANDIDATES = [(n, e, r) for n, plans in MIXED_CANDIDATES.items() for e, r in plans]
 
 SHIM = r"""
 #pragma once
@@ -55,6 +61,9 @@ HOST_MAIN = r"""
 #include "fft_hopper.cuh"
 thread_local std::barrier<>* g_bar;
 using namespace lhg::hopper;
+#ifndef LHG_FFT_RADICES
+inline bool plan_ints_match(const int*) { return true; }
+#endif
 
 template <int E>
 void run(const FftPlan& p, const std::vector<float2>& tw, std::vector<float2>& x) {
@@ -77,8 +86,11 @@ void run(const FftPlan& p, const std::vector<float2>& tw, std::vector<float2>& x
 }
 
 int main() {
-  int f[sizeof(FftPlan) / sizeof(int)];
-  for (int& v : f) if (scanf("%d", &v) != 1) return 2;
+  int count;
+  if (scanf("%d", &count) != 1 || count > 64) return 2;
+  int f[64];
+  for (int i = 0; i < count; ++i) if (scanf("%d", &f[i]) != 1) return 2;
+  if (!plan_ints_match(f)) return 4;
   const FftPlan p = plan_from_ints(f);
   int ntw;
   if (scanf("%d", &ntw) != 1) return 2;
@@ -96,11 +108,16 @@ int main() {
 """
 
 
+def _plans():
+    return ([fft_plan.make_plan(n) for n in LENGTHS]
+            + [fft_plan._plan_of(n, e, r) for n, e, r in CANDIDATES])
+
+
 @pytest.fixture(scope="module")
 def core(tmp_path_factory):
-    """The host build of a plan's library, as the wrappers pick it
-    (``fft_plan.build_defines``: the powers of two, or one E), built once
-    per library."""
+    """The host build of each plan's library, as the wrappers pick it
+    (``fft_plan.build_defines``: the powers of two, or one plan), built in
+    parallel once per library."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ absent: the host build of the FFT core cannot run")
@@ -108,35 +125,60 @@ def core(tmp_path_factory):
     (d / "shim.h").write_text(SHIM)
     (d / "cuda_runtime.h").write_text("")
     (d / "main.cpp").write_text(HOST_MAIN)
-    built = {}
-
-    def exe(plan):
+    jobs = {}
+    for plan in _plans():
         defines = fft_plan.build_defines(plan)
-        if defines not in built:
-            path = d / ("core" + "".join("_" + v.split("=")[1] for v in defines))
-            subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", *(f"-D{v}" for v in defines),
-                            "-include", str(d / "shim.h"), f"-I{d}", f"-I{CSRC}", str(d / "main.cpp"),
-                            "-o", str(path)], check=True, capture_output=True, timeout=300)
-            built[defines] = path
-        return built[defines]
+        jobs.setdefault(defines, d / f"core{len(jobs)}")
 
-    return exe
+    def build(item):
+        defines, path = item
+        subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", *(f"-D{v}" for v in defines),
+                        "-include", str(d / "shim.h"), f"-I{d}", f"-I{CSRC}", str(d / "main.cpp"),
+                        "-o", str(path)], check=True, capture_output=True, timeout=300)
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        list(pool.map(build, jobs.items()))
+    return lambda plan: jobs[fft_plan.build_defines(plan)]
 
 
 def _hex(v: np.ndarray) -> str:
     return "\n".join(f"{float(a.real).hex()} {float(a.imag).hex()}" for a in v)
 
 
-@pytest.mark.parametrize("n", LENGTHS)
-def test_header_fft_line_matches_numpy(core, n):
-    plan = fft_plan.make_plan(n)
+def _run(exe, plan):
+    n = plan.n
     rng = np.random.default_rng(n)
     x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
-    stdin = "\n".join([" ".join(map(str, fft_plan.plan_ints(plan))), str(plan.twiddles.size),
+    ints = fft_plan.plan_ints(plan)
+    stdin = "\n".join([" ".join(map(str, [ints.size, *ints])), str(plan.twiddles.size),
                        _hex(plan.twiddles), _hex(x)])
-    out = subprocess.run([str(core(plan))], input=stdin, capture_output=True, text=True, timeout=120)
+    out = subprocess.run([str(exe)], input=stdin, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = np.array([complex(*(float.fromhex(v) for v in line.split()))
                     for line in out.stdout.splitlines()])
     want = np.fft.fft(x.astype(np.complex128))
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+def test_header_fft_line_matches_numpy(core, n):
+    plan = fft_plan.make_plan(n)
+    _run(core(plan), plan)
+
+
+@pytest.mark.parametrize("n,elems,radices", CANDIDATES)
+def test_header_candidate_plans_match_numpy(core, n, elems, radices):
+    """The candidates fft_ablation.py times on the card, each its own
+    library: every one computes the DFT."""
+    plan = fft_plan._plan_of(n, elems, tuple(radices))
+    _run(core(plan), plan)
+
+
+def test_header_refuses_another_plans_integers(core):
+    """A mixed-radix library checks the integers it is handed against the
+    plan compiled into it (a wrapper that loaded the wrong library)."""
+    plan, other = fft_plan.make_plan(1280), fft_plan.make_plan(768)
+    ints = fft_plan.plan_ints(other)
+    stdin = " ".join(map(str, [ints.size, *ints]))
+    out = subprocess.run([str(core(plan))], input=stdin, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 4

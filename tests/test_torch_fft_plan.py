@@ -18,11 +18,15 @@ shared-memory banks (8-byte accesses: a half-warp's 16 lanes must fall on
 16 distinct bank pairs), and the wrappers' predicates to the lengths and
 grids the radix-2 kernels took.
 
-The mixed-radix plans (lengths 2^a 3^b 5^c that are not powers of two)
-are emulated the same way: their register DFTs (radix 3 and 5 by their
-direct formulas, composites as P-point DFTs, the kernel's compile-time
-twiddles w_R^(n1 k2), then M-point DFTs), the division by Ns as
-(x * magic) >> shift, and a bank model that states their bound.
+The mixed-radix plans (lengths 2^a 3^b 5^c that are not powers of two,
+each compiled into a library of its own) are emulated the same way: their
+register DFTs (radix 3 and 5 by their direct formulas, composites as
+P-point DFTs, the kernel's compile-time twiddles w_R^(n1 k2), then M-point
+DFTs), the guarded butterflies of a middle pass whose radix does not
+divide E (ceil(n / (R T)) a thread, the last off where jj >= n / R), the
+exchanges' per-plan gaps, and a bank model that states their bound; the
+block shapes the wrappers pick (8 interleaved columns where they fit) and
+K1's and K2's row passes at the paths' rp 1280 and 2880.
 
 Tolerance: float32 FFTs of up to 16384 points against float64 ``np.fft``,
 <= 1e-5 of max |ref| (the rounding grows as log2 n, ~1e-6 here); K1's row
@@ -150,80 +154,91 @@ def _dft(a):
     return out
 
 
-def _div(plan, i, x):
-    """x // Ns_i as the kernel divides: (x * magic) >> shift."""
-    magic, shift = fft_plan.div_magic(plan.strides[i])
-    return (np.asarray(x, dtype=np.int64) * magic) >> shift
-
-
 def _exchange_writes(plan, i, j):
-    """Exchange positions pass ``i`` writes, per thread j (array) and
-    register: {register: position}, as the kernel computes them (q Ns R +
-    jj + r Ns, q = jj div Ns), held to pad_index of the Stockham output
-    position."""
-    radix, ns, t = plan.radices[i], plan.strides[i], plan.threads
-    b_count = plan.elems // radix
+    """Exchange positions pass ``i`` writes, per thread j (array) and slot
+    b + r B_i: {slot: position}, -1 where butterfly b is guarded off (jj >=
+    n / R_i), as the kernel computes them (q (Ns R + G) + jj mod Ns + r Ns,
+    q = jj div Ns, G the exchange's gap: Ns for a power of two), held to
+    pad_index of the Stockham output position."""
+    radix, ns, t, gap = plan.radices[i], plan.strides[i], plan.threads, plan.gaps[i]
+    b_count = plan.butterflies(i)
+    span = plan.n // radix
     out = {}
     for b in range(b_count):
         jj = j + b * t
-        base = _div(plan, i, jj) * ns * radix + jj
+        valid = jj < span
+        q = jj // ns
+        base = q * (ns * radix + gap) + jj - q * ns
         for r in range(radix):
             pos = base + r * ns
-            e = (jj // ns) * ns * radix + (jj % ns) + r * ns
-            np.testing.assert_array_equal(pos, fft_plan.pad_index(e, ns, radix))
-            out[b + r * b_count] = pos
+            e = q * ns * radix + (jj % ns) + r * ns
+            np.testing.assert_array_equal(pos[valid], fft_plan.pad_index(e, ns, radix, gap)[valid])
+            out[b + r * b_count] = np.where(valid, pos, -1)
     return out
 
 
 def _exchange_reads(plan, i, j):
     """Exchange positions pass ``i`` (> 0) reads, as the kernel computes
-    them (jj + q pNs + r (n / R + (n / R div Ns) pNs)), held to pad_index
-    of the input position jj + r n / R."""
+    them (jj + G (jj div Ns) + r (n / R + G (n / R) / Ns), G the previous
+    exchange's gap), held to pad_index of the input position jj + r n / R;
+    -1 where the butterfly is guarded off."""
     radix, t, n = plan.radices[i], plan.threads, plan.n
-    pns = plan.strides[i - 1]
-    b_count = plan.elems // radix
+    ns, gap = plan.strides[i], plan.gaps[i - 1]
+    b_count = plan.butterflies(i)
     span = n // radix
-    stride = span + _div(plan, i, span) * pns
+    stride = span + gap * (span // ns)
     out = {}
     for b in range(b_count):
         jj = j + b * t
+        valid = jj < span
         for r in range(radix):
-            pos = jj + _div(plan, i, jj) * pns + r * stride
-            want = fft_plan.pad_index(jj + r * span, plan.strides[i - 1], plan.radices[i - 1])
-            np.testing.assert_array_equal(pos, want)
-            out[b + r * b_count] = pos
+            pos = jj + gap * (jj // ns) + r * stride
+            want = fft_plan.pad_index(jj + r * span, plan.strides[i - 1], plan.radices[i - 1], gap)
+            np.testing.assert_array_equal(pos[valid], want[valid])
+            out[b + r * b_count] = np.where(valid, pos, -1)
     return out
 
 
 def emulate_line_fft(v, plan):
     """fft_line on registers v (lines, T, E) complex64: the forward FFT,
-    through the exchange buffer as the kernel goes through it."""
+    through the exchange buffer as the kernel goes through it.  A pass holds
+    B_i R_i slots a thread (E in the first and the last)."""
     v = v.astype(np.complex64).copy()
     lines, t, e = v.shape
     assert (t, e) == (plan.threads, plan.elems)
     j = np.arange(t)
     buf = None
+    passes = len(plan.radices)
     for i, (radix, ns, off) in enumerate(zip(plan.radices, plan.strides, plan.tw_offsets)):
-        b_count = e // radix
-        if i > 0:
-            for reg, pos in _exchange_reads(plan, i, j).items():
-                assert not np.isnan(buf[:, pos]).any(), "read of a position no thread wrote"
-                v[:, :, reg] = buf[:, pos]
+        b_count = plan.butterflies(i)
+        if i == 0:
+            assert b_count * radix == e, "the first radix divides E"
+            u = v
+        else:
+            u = np.zeros((lines, t, b_count * radix), dtype=np.complex64)
+            for slot, pos in _exchange_reads(plan, i, j).items():
+                ok = pos >= 0
+                assert not np.isnan(buf[:, pos[ok]]).any(), "read of a position no thread wrote"
+                u[:, ok, slot] = buf[:, pos[ok]]
         for b in range(b_count):
             if ns > 1:
-                jj = j + b * t
-                m = jj - _div(plan, i, jj) * ns
+                m = (j + b * t) % ns
                 for r in range(1, radix):
-                    v[:, :, b + r * b_count] *= plan.twiddles[off + (r - 1) * ns + m]
-            v[:, :, b::b_count] = _dft(v[:, :, b::b_count])
-        if i + 1 < len(plan.radices):
+                    u[:, :, b + r * b_count] *= plan.twiddles[off + (r - 1) * ns + m]
+            u[:, :, b::b_count] = _dft(u[:, :, b::b_count])
+        if i + 1 < passes:
             buf = np.full((lines, plan.buffer), np.nan, dtype=np.complex64)
             written = np.zeros(plan.buffer, dtype=int)
-            for reg, pos in _exchange_writes(plan, i, j).items():
+            for slot, pos in _exchange_writes(plan, i, j).items():
+                ok = pos >= 0
                 assert pos.max() < plan.buffer
-                np.add.at(written, pos, 1)
-                buf[:, pos] = v[:, :, reg]
+                np.add.at(written, pos[ok], 1)
+                buf[:, pos[ok]] = u[:, ok, slot]
             assert written.max() == 1, "two threads wrote one position"
+            assert written.sum() == plan.n, "a position no thread wrote"
+        else:
+            assert b_count * radix == e, "the last radix divides E"
+            v = u
     return v
 
 
@@ -253,21 +268,35 @@ def test_core_emulation_matches_numpy(n, inverse):
 
 @pytest.mark.parametrize("n", LENGTHS + MIXED_LENGTHS + [5000])
 def test_plan_tables(n):
-    """The plan's radices multiply to n and divide E; a power of two keeps
-    radix 32 for every pass but the last, any other length takes an E of
-    MIXED_ELEMS; the twiddle tables are exp(-2 pi i r m / (Ns R)) rounded
-    once to complex64, and the integers the kernel reads say the same."""
+    """The plan's radices multiply to n, the first and the last divide E; a
+    power of two keeps radix 32 for every pass but the last and its
+    library reads the 14-int plan, any other length is its own library,
+    the plan spelled in its macros; the twiddle tables are exp(-2 pi i r m
+    / (Ns R)) rounded once to complex64, and the integers the kernel reads
+    say the same."""
     plan = fft_plan.make_plan(n)
     assert np.prod(plan.radices) == n and plan.elems * plan.threads == n
-    assert all(plan.elems % r == 0 and r in fft_plan.RADICES for r in plan.radices)
+    assert all(r in fft_plan.RADICES for r in plan.radices)
+    assert plan.elems % plan.radices[0] == 0 and plan.elems % plan.radices[-1] == 0
+    assert plan.threads <= plan.max_threads and plan.max_threads % plan.threads == 0
+    assert len(plan.gaps) == len(plan.radices) - 1
     if n & (n - 1) == 0:
-        assert plan.elems == min(n, 32)
+        assert plan.elems == min(n, 32) and plan.max_threads == fft_plan.MAX_THREADS
         assert all(r == fft_plan.MAX_RADIX for r in plan.radices[:-1])
+        assert all(plan.elems % r == 0 for r in plan.radices)
+        assert plan.gaps == plan.strides[:-1]
         assert fft_plan.build_defines(plan) == ()
     else:
-        assert plan.elems in fft_plan.MIXED_ELEMS
-        assert fft_plan.build_defines(plan) == (f"LHG_FFT_ELEMS={plan.elems}",)
-    assert plan.threads <= fft_plan.max_threads(plan.elems)
+        assert plan.elems <= fft_plan.MAX_ELEMS and len(plan.radices) <= fft_plan.MAX_PASSES
+        assert plan.max_threads <= fft_plan.MAX_BLOCK_THREADS
+        assert all(0 <= g < fft_plan.BANK_PAIRS for g in plan.gaps)
+        assert plan.columns == (fft._pick_lpb(plan, True) or 0, spectral._pick_cpb(plan, False) or 0,
+                                spectral._pick_cpb(plan, True) or 0)
+        assert fft_plan.build_defines(plan) == (
+            f"LHG_FFT_ELEMS={plan.elems}", "LHG_FFT_RADICES=" + ".".join(map(str, plan.radices)),
+            "LHG_FFT_GAPS=" + (".".join(map(str, plan.gaps)) or "0"),
+            f"LHG_FFT_MAX_THREADS={plan.max_threads}",
+            "LHG_FFT_COLUMNS=" + ".".join(map(str, plan.columns)))
     for radix, ns, off in zip(plan.radices, plan.strides, plan.tw_offsets):
         if ns == 1:
             continue
@@ -276,39 +305,45 @@ def test_plan_tables(n):
         np.testing.assert_array_equal(plan.twiddles[off:off + want.size], want)
     ints = fft_plan.plan_ints(plan)
     passes = len(plan.radices)
-    assert list(ints[:5]) == [n, plan.elems, plan.threads, passes, plan.buffer]
+    assert ints.dtype == np.int32 and list(ints[:5]) == [n, plan.elems, plan.threads, passes, plan.buffer]
     if n & (n - 1) == 0:
         # the power-of-two library's struct: log2 radix, log2 Ns, offsets
-        assert ints.dtype == np.int32 and ints.size == 5 + 3 * fft_plan.POW2_MAX_PASSES
+        assert ints.size == 5 + 3 * fft_plan.POW2_MAX_PASSES
         lg_radix, lg_ns, tw_off = (ints[5 + k * fft_plan.POW2_MAX_PASSES:][:passes] for k in range(3))
         assert [1 << int(v) for v in lg_radix] == list(plan.radices)
         assert [1 << int(v) for v in lg_ns] == list(plan.strides)
         assert list(tw_off) == list(plan.tw_offsets)
-        return
-    assert ints.dtype == np.int32 and ints.size == 5 + 5 * fft_plan.MAX_PASSES
-    radix, ns, magic, shift, tw_off = (ints[5 + k * fft_plan.MAX_PASSES:][:passes] for k in range(5))
-    assert list(radix) == list(plan.radices) and list(ns) == list(plan.strides)
-    assert list(tw_off) == list(plan.tw_offsets)
-    x = np.arange(1 << fft_plan.DIV_BITS, dtype=np.int64)
-    for d, mg, sh in zip(plan.strides, magic, shift):
-        assert ((x * int(mg)) >> int(sh) == x // d).all() and int((x * int(mg)).max()) < 2**31
+    else:
+        assert ints.size == 5  # the head the library checks against its compiled plan
 
 
+# (n, E, radices): the paths' lengths take fft_plan.CHOSEN (the fastest of
+# fft_ablation.py's candidates on the card that spill nothing and keep 8
+# columns), the others the rule
 @pytest.mark.parametrize("n,elems,radices", [
-    (768, 48, (48, 16)), (1280, 40, (40, 8, 4)), (1728, 24, (24, 24, 3)), (2880, 60, (60, 12, 4)),
-    (5000, 50, (50, 50, 2)), (6, 6, (6,)), (96, 24, (24, 4)), (384, 48, (48, 8))])
+    (768, 16, (16, 3, 16)), (1280, 16, (16, 5, 16)), (1728, 24, (24, 24, 3)), (2880, 60, (12, 20, 12)),
+    (5000, 40, (40, 25, 5)), (6, 6, (6,)), (96, 24, (4, 24)), (384, 24, (2, 8, 24))])
 def test_mixed_radix_plans(n, elems, radices):
-    """The plans of the grids' lengths: the fewest passes, a block of up to
-    512 threads where E <= 32, else 256 (255 registers a thread)."""
+    """The plans of the grids' lengths, and the rule's for others: at most
+    32 values a thread in every pass where a rule's plan has them (2880
+    takes E = 60 in 8 columns of 48 threads, 5000 E = 40: the candidates of
+    fewer values spilled or lost), one line at least a block, and 8
+    columns a block at the paths' strided lengths."""
     plan = fft_plan.make_plan(n)
     assert (plan.elems, plan.radices) == (elems, radices)
-    assert fft_plan.max_threads(plan.elems) == (512 if elems <= 32 else 256)
+    if n not in fft_plan.CHOSEN:
+        assert plan.peak_values <= fft_plan.TARGET_VALUES
+        assert min(fft_plan.candidates(n), key=lambda c: fft_plan._rule_key(n, *c)) == (elems, radices)
+    assert plan.max_threads >= plan.threads
+    if n in (1280, 1728, 2880):
+        assert plan.max_threads == fft_plan.COLUMNS * plan.threads
 
 
 def test_every_smooth_length_has_a_plan_but_five():
-    """make_plan takes every 2^a 3^b 5^c from 2 to 16384 but the five whose
-    E would leave more than a block of threads a line (or none divides the
-    length with the radices it needs), and nothing else."""
+    """make_plan takes every 2^a 3^b 5^c from 2 to 16384 (the five the
+    fewest-passes plans left out, 9375, 15552, 15625, 16000 and 16200, now
+    too: their threads hold fewer values in more passes), and nothing
+    else."""
     smooth = [n for n in range(2, fft_plan.MAX_LENGTH + 1) if fft_plan.is_smooth(n)]
     missing = []
     for n in smooth:
@@ -317,8 +352,8 @@ def test_every_smooth_length_has_a_plan_but_five():
         except ValueError:
             missing.append(n)
             continue
-        assert len(plan.radices) <= fft_plan.MAX_PASSES
-    assert missing == [9375, 15552, 15625, 16000, 16200]
+        assert len(plan.radices) <= max(fft_plan.MAX_PASSES, fft_plan.POW2_MAX_PASSES)
+    assert missing == []
     for n in (1, 7, 14, 34, 3048, 16385, 32768):
         with pytest.raises(ValueError):
             fft_plan.make_plan(n)
@@ -326,30 +361,35 @@ def test_every_smooth_length_has_a_plan_but_five():
 
 def test_kernel_sources_match_plan():
     """The header's DFT constants are the float32 values the emulation
-    uses, its E list and radix cases are the plan's, the C struct reads as
-    many integers as plan_ints writes, the blocks' thread limits match
-    max_threads, and the compile-time twiddles (Taylor series, transcribed)
-    round to numpy's float32 cos and sin wherever they are read."""
+    uses; the power-of-two library keeps its 14-int plan, its E list and
+    its block limit; a mixed-radix library reads its plan from its macros
+    alone (no radix switch, no plan struct of integers at run time) and
+    launches with the plan's limit; the compile-time twiddles (Taylor
+    series, transcribed) round to numpy's float32 cos and sin wherever they
+    are read."""
     src = (CSRC / "fft_hopper.cuh").read_text()
     for name, want in (("kCos", DFT_COS), ("kSin", DFT_SIN)):
         body = re.search(name + r"\[16\] = \{([^}]*)\}", src).group(1)
         got = np.array([float(v.strip().rstrip("f")) for v in body.split(",")], dtype=np.float32)
         np.testing.assert_array_equal(got, want)
-    mixed, pow2 = src.split("#ifdef LHG_FFT_ELEMS\nconstexpr int kMaxPasses", 1)[1].split("#else", 1)
-    assert f" = {fft_plan.MAX_PASSES};" in mixed and "int ns_magic[kMaxPasses];" in mixed
-    assert f"sizeof(FftPlan) == {5 + 5 * fft_plan.MAX_PASSES} * sizeof(int)" in mixed
+    mixed, pow2 = src.split("#ifdef LHG_FFT_RADICES\n#define LHG_FFT_STR2", 1)[1].split("#else", 1)
+    assert "LHG_FFT_STR(LHG_FFT_RADICES)" in mixed and "LHG_FFT_STR(LHG_FFT_GAPS)" in mixed
+    assert f"kPasses <= {fft_plan.MAX_PASSES}" in mixed and "int lg_ns" not in mixed
     assert f"kMaxPasses = {fft_plan.POW2_MAX_PASSES};" in pow2 and "int lg_ns[kMaxPasses];" in pow2
     assert f"sizeof(FftPlan) == {5 + 3 * fft_plan.POW2_MAX_PASSES} * sizeof(int)" in pow2.split("#endif")[0]
-    elems = re.search(r"#define LHG_FFT_MIXED_ELEMS\(X\)(.*?)\n#", src, re.S).group(1)
-    assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", elems)) == fft_plan.MIXED_ELEMS
+    assert "switch (p.radix" not in src and "magic" not in src
     assert "#define LHG_FFT_KERNEL_ELEMS(X) X(32) X(16) X(8) X(4) X(2)" in src
-    line = src[src.index("void fft_line"):]
-    assert tuple(int(v) for v in re.findall(r"LHG_FFT_RADIX\((\d+)\)", line)) == fft_plan.RADICES
+    assert "#define LHG_FFT_KERNEL_ELEMS(X) X(LHG_FFT_ELEMS)" in src
+    assert "#define LHG_FFT_LAUNCH_BOUND(E) LHG_FFT_MAX_THREADS" in src
+    assert "#define LHG_FFT_LAUNCH_BOUND(E) E > 32 ? 256 : 512" in src
     consts = {name: np.float32(float(v)) for name, v in re.findall(r"k(S3|C1|C2|S1|S2) = (-?[0-9.]+)f", src)}
     assert consts == {"S3": S3, "C1": C5[0], "C2": C5[1], "S1": S5[0], "S2": S5[1]}
-    assert "elems > 32 ? 256 : 512" in src
+    assert "__launch_bounds__(LHG_FFT_K3_LAUNCH_BOUND(E, kColumns))" in (CSRC / "k3_fft.cu").read_text()
+    assert "#define LHG_FFT_K3_LAUNCH_BOUND(E, kColumns) E > 32 ? 256 : 512" in src
+    assert "__launch_bounds__(LHG_FFT_LAUNCH_BOUND(E))" in (CSRC / "k1_asm_propagate.cu").read_text()
     for kernel in ("k3_fft.cu", "k1_asm_propagate.cu"):
-        assert "__launch_bounds__(E > 32 ? 256 : 512)" in (CSRC / kernel).read_text()
+        assert "plan_ints_match" in (CSRC / kernel).read_text()
+    assert "LHG_FFT_STR(LHG_FFT_COLUMNS)" in mixed
     for r in sorted({r for r in fft_plan.RADICES if r & (r - 1)}):
         for q in range(1, r):
             if 4 * q % r:  # the quarter turns are exact, never read from the table
@@ -402,6 +442,7 @@ def test_exchanges_free_of_bank_conflicts(n):
             for regs in accesses:
                 for pos in regs.values():
                     addr = pos * lpb + line if columns else line * plan.buffer + pos
+                    addr = np.where(pos >= 0, addr, -1)
                     assert addr.max() < lpb * plan.buffer
                     for w in range(0, threads, 32):
                         warp = np.full(32, -1)
@@ -409,14 +450,17 @@ def test_exchanges_free_of_bank_conflicts(n):
                         assert _half_warp_conflicts(warp) == 0, (name, n, i)
 
 
-def _max_ways(plan):
+def _max_ways(plan, columns_only=False):
     """The most accesses one bank pair takes in a half-warp, over every
     warp's reads and writes of every exchange in every block shape the
-    wrappers launch (1: conflict-free); each address inside the block's
-    shared memory."""
+    wrappers launch (``columns_only``: those of interleaved columns, K3
+    along axis -2, K1 and K2) (1: conflict-free); each address inside the
+    block's shared memory."""
     t = plan.threads
     ways = 1
     for name, lpb, columns in _layouts(plan):
+        if columns_only and not columns:
+            continue
         threads = lpb * t
         tid = np.arange(threads)
         line = tid % lpb if columns else tid // t
@@ -430,26 +474,40 @@ def _max_ways(plan):
             for regs in accesses:
                 for pos in regs.values():
                     addr = pos * lpb + line if columns else line * plan.buffer + pos
+                    addr = np.where(pos >= 0, addr, -1)
                     assert addr.max() < lpb * plan.buffer
                     for w in range(0, threads, 16):
                         half = np.unique(addr[w:w + 16])
-                        ways = max(ways, int(np.bincount(half % 16).max()))
+                        half = half[half >= 0]
+                        if half.size:
+                            ways = max(ways, int(np.bincount(half % 16).max()))
     return ways
 
 
-@pytest.mark.parametrize("n,bound", [(n, 2) for n in MIXED_LENGTHS + [5000] if n > 48]
-                         + [(75, 5), (375, 16)])
+@pytest.mark.parametrize("n,bound", [(96, 1), (384, 2), (768, 1), (1280, 1), (1728, 2), (2880, 2),
+                                     (5000, 2), (75, 4), (375, 3)])
 def test_mixed_radix_exchanges_bank_conflicts_bounded(n, bound):
-    """The pad_index layout is conflict-free for powers of two only.  For a
-    mixed-radix plan a bank pair takes at most 2 accesses of a half-warp
-    (a 2-way conflict) at every length with a factor 2 in most strides:
-    the path lengths here, and all but 15 of the 161 multi-pass mixed
-    lengths up to 16384.  The 15 are odd lengths or nearly (75: 5-way;
-    225, 375, 1125, 1875, 3375, 5625: 15- to 16-way; 100, 108, 162, 243,
-    729, 1500, 2187, 6561: 3- to 4-way): correct, slower, on no path."""
+    """The gap each exchange of a mixed-radix plan takes (fft_plan.py's
+    bank model, below 16) bounds its conflicts: 768 and 1280 are
+    conflict-free in every block shape, and so are 63 of the 173 multi-pass
+    mixed lengths up to 16384; 95 take at most 2 accesses a bank pair
+    (1728 and 2880 only along axis -1, on no path; 5000 where its second
+    pass reads across a block of 40, since the gap that frees that read
+    makes the first pass's writes 8-way), 10 take 3 (45, 54, 72, 81, 90,
+    270, 360, 375, 600, 1800) and 5 take 4 (50, 75, 100, 125, 150).  The
+    gap Ns of the fewest-passes plans took up to 16 (375) and 2 at every
+    path length."""
     plan = fft_plan.make_plan(n)
     assert len(plan.radices) > 1
-    assert _max_ways(plan) <= bound
+    assert _max_ways(plan) == bound
+
+
+@pytest.mark.parametrize("n", [1280, 1728, 2880])
+def test_mixed_radix_column_exchanges_free_of_bank_conflicts(n):
+    """The lengths the paths run as interleaved columns (K3 along axis -2
+    at 1280 and 2880, K1 and K2 at rp 1280, 1728 and 2880): every block
+    shape's exchanges are conflict-free."""
+    assert _max_ways(fft_plan.make_plan(n), columns_only=True) == 1
 
 
 def _old_supported_length(n):
@@ -486,15 +544,18 @@ def test_predicates_accept_the_mixed_radix_lengths():
     """K3 takes the portrait grid (1280 x 768), the 4K grid (2880 x 5000)
     and 1728; K1 and K2 take rp = 768, 1280, 1728, 2880 and 5000 at any
     cp; both refuse lengths with another prime factor (1080p's 3048 =
-    8 * 3 * 127 columns: K3 declines that grid, K1 takes it) and the five
-    smooth lengths without a plan.  K3's length predicate is exactly "has a
-    plan whose blocks fit"."""
-    for n in (6, 12, 24, 48, 96, 384, 768, 1280, 1728, 2880, 5000):
+    8 * 3 * 127 columns: K3 declines that grid, K1 takes it).  K3 takes the
+    five smooth lengths the fewest-passes plans had none for, K1 the one
+    whose line and kept spectrum fit a block (9375).  K3's length predicate
+    is exactly "has a plan whose blocks fit"."""
+    for n in (6, 12, 24, 48, 96, 384, 768, 1280, 1728, 2880, 5000, 9375):
         assert fft.supported_length(n), n
         assert spectral.supported(n, 7) and spectral.supported(n, 3048), n
+    for n in (15552, 15625, 16000, 16200):
+        assert fft.supported_length(n) and not spectral.supported(n, 7), n
     assert fft.supported(1280, 768) and fft.supported(2880, 5000)
     assert not fft.supported(1728, 3048)
-    for n in (14, 34, 3048, 9375, 15552, 15625, 16000, 16200):
+    for n in (14, 34, 3048, 16385):
         assert not fft.supported_length(n) and not spectral.supported(n, 64), n
     for n in range(2, fft_plan.MAX_LENGTH + 1):
         try:
@@ -607,13 +668,33 @@ def _radix2_era_lines_per_block(plan, min_lines, bytes_per_line):
     return lines
 
 
-@pytest.mark.parametrize("n", LENGTHS)
+# (K3 axis -1, K3 axis -2, K1/K2 D = 1, K1/K2 D > 1) lines a block at the
+# paths' mixed-radix lengths: 8 interleaved columns (64-byte row segments)
+# wherever one block's threads and shared memory hold them (2880 with the
+# spectrum kept: 4, 46 KB a column)
+MIXED_BLOCK_SHAPES = {768: (2, 8, 8, 8), 1280: (1, 8, 8, 8), 1728: (1, 8, 8, 8), 2880: (2, 8, 8, 4),
+                      5000: (1, 4, 4, 2)}
+
+
+@pytest.mark.parametrize("n", LENGTHS + list(MIXED_BLOCK_SHAPES))
 def test_block_shapes_match_the_wrappers_own_searches(n):
     """K3's lines per block along either axis and K1's columns per block,
-    with the spectrum kept or not, as each wrapper picked them with its own
-    copy of the search; the plan never needs more passes than MAX_PASSES."""
+    with the spectrum kept or not: for the powers of two as each wrapper
+    picked them with its own copy of the search; for the paths' mixed
+    lengths 8 columns a block where they fit, within the plan's block limit
+    and 227 KB.  The plan never needs more passes than its library takes."""
     plan = fft_plan.make_plan(n)
-    assert len(plan.radices) <= fft_plan.MAX_PASSES
+    assert len(plan.radices) <= (fft_plan.POW2_MAX_PASSES if plan.pow2 else fft_plan.MAX_PASSES)
+    shapes = (fft._pick_lpb(plan, False), fft._pick_lpb(plan, True), spectral._pick_cpb(plan, False),
+              spectral._pick_cpb(plan, True))
+    if not plan.pow2:
+        assert shapes == MIXED_BLOCK_SHAPES[n]
+        limits = (plan.line_threads,) + (plan.max_threads,) * 3
+        for lines, per_line, limit in zip(shapes, (plan.buffer, plan.buffer, max(plan.buffer, n),
+                                                   max(plan.buffer, n) + n), limits):
+            assert lines * plan.threads <= limit and lines * per_line * 8 <= fft_plan.SMEM_LIMIT
+        assert plan.columns == shapes[1:]
+        return
     for columns in (False, True):
         assert fft._pick_lpb(plan, columns) == _radix2_era_lines_per_block(
             plan, 8 if columns else 1, plan.buffer * 8)
@@ -737,3 +818,71 @@ def test_k2_row_adjoint_emulation_matches_plain_version_and_jax(mode, rows, cols
     jdr, jdi = jax.jit(vjp)((jnp.asarray(gr.numpy()), jnp.asarray(gi.numpy())))
     want = np.asarray(jdr) + 1j * np.asarray(jdi)
     assert np.max(np.abs(y.numpy() - want)) / np.abs(want).max() <= 5e-5
+
+
+def _blocks_cover_every_column_once(plan, cp, cpb):
+    """The launch's blocks (cpb columns of T threads each, thread t on
+    column block * cpb + t % cpb as its thread t // cpb) cover every
+    (column, line thread) of the grid once."""
+    t = np.arange(cpb * plan.threads)
+    seen = np.zeros((cp, plan.threads), dtype=int)
+    for block in range(-(-cp // cpb)):
+        col = block * cpb + t % cpb
+        ok = col < cp
+        np.add.at(seen, (col[ok], (t // cpb)[ok]), 1)
+    return bool((seen == 1).all())
+
+
+@pytest.mark.parametrize("rp", [1280, 2880])
+@pytest.mark.parametrize("kind,mode", [("K1", "backward"), ("K1", "stack"), ("K2", "conj_h"),
+                                       ("K2", "from_spectrum_per_plane")])
+def test_row_passes_at_the_paths_rp_with_their_column_groups(rp, kind, mode):
+    """K1's row pass and K2's row adjoint emulated at the portrait's rp
+    1280 (E = 20, a guarded middle pass) and 4K's 2880 (E = 60) on 13
+    columns, against the plain versions at the card tests' bounds; the
+    wrapper's column groups are 8 (4 at 2880 with the spectrum or the
+    distance sum kept), and their blocks cover every column and line thread
+    once, the last group ragged."""
+    rows, pad = {1280: (640, 320), 2880: (2176, 352)}[rp]
+    optics = OpticsConfig(rows=rows, cols=9, pad_size=pad, pad_cols_override=2,
+                          filter_radius_coefficient=0.45)
+    if kind == "K1":
+        conj_h, num_d, from_spectrum, per_plane, _ = MODES[mode]
+        mask_kind = None if conj_h else "plan"
+    else:
+        conj_h, num_d, from_spectrum, per_plane, mask_kind = K2_MODES[mode]
+    plan = asm.make_plan(optics, distances=np.linspace(4e-4, 1e-3, 3 if per_plane else num_d), device="cpu")
+    rng = np.random.default_rng(rp)
+    cp = optics.padded_cols
+    shape = (1, 3) + ((rp, cp) if from_spectrum else (rows, optics.cols))
+    g = torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64))
+    dists = plan.distances[torch.arange(1) % 3] if per_plane else plan.distances
+    fr, fi, wl2, dvec, m, cfg = args = asm.fused_args(
+        plan, g, dists, conj_h=conj_h, from_spectrum=from_spectrum, per_plane=per_plane,
+        use_mask=mask_kind is not None)
+    _, _, _, _, _, _, _, r0, crop_rows, c0, crop_cols = spectral._unpack(cfg)
+    fplan = fft_plan.make_plan(rp)
+    cpb = spectral._pick_cpb(fplan, num_d > 1)
+    assert cpb == (4 if rp == 2880 and num_d > 1 else fft_plan.COLUMNS)
+    assert _blocks_cover_every_column_once(fplan, cp, cpb)
+    pad_cols = (c0, cp - crop_cols - c0)
+    if kind == "K1":
+        x = torch.complex(fr, fi)
+        if not from_spectrum:
+            x = torch.fft.fft(torch.nn.functional.pad(x, pad_cols), dim=-1)
+        y = _emulate_row_pass(x.numpy(), wl2.numpy(), dvec.numpy(), None if m is None else m.numpy(), cfg)
+        y = torch.fft.ifft(torch.from_numpy(y), dim=-1)[..., c0:c0 + crop_cols]
+        rr, ri = spectral.propagate_planes_reference(*args)
+    else:
+        gshape = (fr.shape[0], num_d, rows, optics.cols)
+        gr = torch.from_numpy(rng.standard_normal(gshape).astype(np.float32))
+        gi = torch.from_numpy(rng.standard_normal(gshape).astype(np.float32))
+        x = torch.fft.fft(torch.nn.functional.pad(torch.complex(gr, gi), pad_cols), dim=-1)
+        y = torch.from_numpy(_emulate_row_adjoint(x.numpy(), wl2.numpy(), dvec.numpy(),
+                                                  None if m is None else m.numpy(), cfg))
+        y = y / cp if from_spectrum else torch.fft.ifft(y, dim=-1)[..., c0:c0 + crop_cols]
+        rr, ri = spectral.propagate_planes_adjoint_reference(gr, gi, wl2, dvec, m, cfg)
+    err = torch.sqrt((y.real - rr) ** 2 + (y.imag - ri) ** 2).flatten()
+    rel = err / torch.sqrt(rr**2 + ri**2).max()
+    assert float(rel.max()) <= 1e-4
+    assert float(rel.sort().values[int(0.999 * (rel.numel() - 1))]) <= 1e-5

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from learned_hologram_gan_tpu_torch import fft_ablation
-from learned_hologram_gan_tpu_torch.ops.cuda import spectral
+from learned_hologram_gan_tpu_torch.ops.cuda import fft, fft_plan, spectral
 from learned_hologram_gan_tpu_torch.utils import cuda_measure as cm
 
 
@@ -81,6 +81,46 @@ def test_ablation_reads_ptxas_per_entry_function():
 ])
 def test_ablation_blocks_per_sm(regs, threads, smem, want):
     assert fft_ablation._blocks_per_sm(regs, threads, smem) == want
+
+
+MIXED_LOG = """
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119asm_row_pass_kernelILi60ELi4EEEvPK6float2' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119asm_row_pass_kernelILi60ELi4EEEvPK6float2
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119asm_row_pass_kernelILi60ELi8EEEvPK6float2' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119asm_row_pass_kernelILi60ELi8EEEvPK6float2
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 165 registers, used 1 barriers
+"""
+
+
+def test_ablation_reports_the_mixed_instantiation_the_wrapper_launches():
+    """A mixed-radix K1 library holds an instantiation per column count;
+    the ablation reports the one of D = 1 (8 columns at 2880), not the
+    first in the log."""
+    plan = fft_plan.make_plan(2880)
+    assert spectral._pick_cpb(plan, False) == 8 and spectral._pick_cpb(plan, True) == 4
+    report = fft_ablation._mixed_report(MIXED_LOG, plan)
+    assert report.startswith("K1 165 reg 0 B spill, 8 x 48 threads, 1 blocks/SM")
+
+
+def test_ablation_candidates_are_plans_and_hold_the_chosen_one():
+    """Every candidate the ablation times is a plan of its length, the
+    first is the fewest-passes plan the plans replaced, and the plan each
+    length ships with is one of them; choosing one in the ablation's block
+    leaves the shipped plan and the wrappers' caches as they were."""
+    for n, plans in fft_ablation.MIXED_CANDIDATES.items():
+        assert all((e, tuple(r)) in fft_plan.candidates(n) for e, r in plans), n
+        assert fft_plan.CHOSEN[n] in plans, n
+    assert fft_ablation.MIXED_CANDIDATES[1280][0] == (40, (40, 8, 4))
+    shipped = fft_plan.make_plan(1280)
+    with fft_ablation._plan_chosen(1280, 40, (40, 8, 4)) as plan:
+        assert (plan.elems, plan.radices) == (40, (40, 8, 4)) and fft_plan.make_plan(1280) is plan
+        assert fft.supported_length(1280) and spectral.supported(1280, 7)
+    again = fft_plan.make_plan(1280)
+    assert (again.elems, again.radices, again.columns) == (shipped.elems, shipped.radices, shipped.columns)
+    assert fft_plan.CHOSEN[1280] == (shipped.elems, shipped.radices)
 
 
 def test_ablation_builds_name_macros_the_sources_define():
