@@ -111,7 +111,21 @@ configuration): inference (RGBD -> POH -> 3-plane focal stack, the path of
      trip through ``exr2bin`` on the native decoder;
      ``make_synthetic_dataset`` at 384^2; a ``profile_op`` trace naming K3;
      JSON lines for K1, K2 and K3 at the grids of the portrait, 1080p and
-     4K paths.
+     4K paths;
+  16. the config-of-record workflow tools
+     (``learned_hologram_gan_tpu_torch/quality_smoke.py``) at the quality
+     run's defaults (384^2, pad 320, base 64, batch 4, 20 planes,
+     bfloat16, perceptual ``random``) on 8 + 4 synthetic samples:
+     ``tools/quality_run`` (stage 1, stage 2 and the GAN stage for 1 epoch
+     each; the chunked GAN run that resumes and evaluates; one GAN epoch
+     under ``--streaming --data_dtype bfloat16``; the stages under
+     ``--resident_shards 2``, the shard and stage 2's copy never resident
+     together), ``tools/ablation_run`` (the seven variants, 1 epoch each,
+     ``ordering.json`` from the summaries on disk), each run's K1/K2/K3
+     launches held to what the code makes; ``quality_run`` at 32^2 on the
+     card against the CPU; ``tools/convert_reference_weights`` ->
+     ``generate_poh`` on the card against the CPU; the three warming-up
+     examples on the card.
 
 It raises on any failure.  It prints the kernels' JSON line and then, as
 its last line, ``{"ok": true, "device": {...}}``.  It exits non-zero at once
@@ -445,8 +459,8 @@ def main():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr, flush=True)
         return 1
     from learned_hologram_gan_tpu_torch import (bf16_smoke, fft_ablation, fused_smoke, highres_smoke,
-                                                mixed_radix_smoke, parallel_smoke, pretrain_smoke, serve_smoke,
-                                                train_smoke)
+                                                mixed_radix_smoke, parallel_smoke, pretrain_smoke, quality_smoke,
+                                                serve_smoke, train_smoke)
     from learned_hologram_gan_tpu_torch.ops.cuda import build, conv_block, fft, spectral, transfer
 
     t0 = time.perf_counter()
@@ -624,6 +638,18 @@ def main():
     ]
     train_kernels["k3"]["synthetic_384_launches"] = synth384["launches"]["k3"]
 
+    with Phase("config-of-record workflow: quality_run, ablation_run, the converter, the examples"):
+        transfer.reset_launch_counts()
+        quality = quality_smoke.run(card)
+        if transfer.apply_transfer_stack.launches:
+            raise AssertionError("K4 launched in the workflow phase, want 0")
+    for key in ("quality_run_launches", "ablation_launches"):
+        launches = quality[key]
+        k1[key] = launches["k1"].get("conj_h", 0)
+        train_kernels["k1_train"][key] = {m: n for m, n in launches["k1"].items() if m != "conj_h"}
+        train_kernels["k2"][key] = launches["k2"]
+        train_kernels["k3"][key] = launches["k3"]
+
     print("train steps at full width, batch 4, ratio 5 (host clock):", flush=True)
     for r in runs:
         print(f"  {r['label']:45s} {r['steps_per_s']:.3f} steps/s, peak {r['peak_gib']:.2f} GiB; "
@@ -638,6 +664,11 @@ def main():
               f"{legs['peak_gib']['plain']:.2f} GiB; one step's peak on the spatial mesh of 1 "
               f"{legs['step_peak_gib']['spatial']:.2f} GiB, plain {legs['step_peak_gib']['plain']:.2f} GiB "
               f"[{card}]", flush=True)
+    for label, r in quality["quality_runs"].items():
+        print(f"  quality_run {label}: {r['wall_s']:.2f} s; "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in r["result"]["timings"].items()) + "; peak "
+              + ", ".join(f"{k} {v:.2f} GiB" for k, v in r["result"]["memory"]["peak_gib"].items())
+              + f" [{card}]", flush=True)
     p = serving["pipeline"]
     print(f"inference at bench.py's configuration, batch 16: int8 stage 1 {p['poh_per_s']:.2f} POH/s "
           f"(spread {p['spread']:.2f}, peak {p['peak_gib']:.2f} GiB), bfloat16 module path "

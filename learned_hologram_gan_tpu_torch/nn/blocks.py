@@ -124,10 +124,24 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         return y + _bias(self.bias, dt)
 
 
-def _conv(in_ch: int, features: int, kernel: int, dtype: torch.dtype = torch.float32) -> Conv2d:
-    """flax ``nn.Conv`` with "SAME" padding for k > 1, "VALID" for 1x1."""
-    return Conv2d(in_ch, features, kernel, padding=kernel // 2 if kernel > 1 else 0,
-                  compute_dtype=dtype)
+def _conv(in_ch: int, features: int, kernel: int, dtype: torch.dtype = torch.float32,
+          stride: int = 1) -> Conv2d:
+    """flax ``nn.Conv`` with "SAME" padding for k > 1, "VALID" for 1x1; a
+    strided conv pads nothing itself (:func:`_same_pad` pads its input)."""
+    return Conv2d(in_ch, features, kernel, stride=stride,
+                  padding=kernel // 2 if kernel > 1 and stride == 1 else 0, compute_dtype=dtype)
+
+
+def _same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """flax's "SAME" padding of a strided conv's NCHW input: ceil(n / s)
+    outputs, the extra row and column (if any) at the high end."""
+    if stride == 1:
+        return x
+    pads = []
+    for n in (x.shape[-1], x.shape[-2]):
+        total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
 
 
 def _moments(xf: torch.Tensor, dims: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -318,21 +332,24 @@ def _batch_norm(features: int) -> BatchNorm:
 
 class ResidualBlock(nn.Module):
     """conv3x3-BN-ReLU-conv3x3-BN (+1x1 shortcut) -> add -> ReLU
-    (reference neural_network_components.py:6-32), in compute ``dtype``."""
+    (reference neural_network_components.py:6-32), in compute ``dtype``;
+    ``strides`` > 1 strides the first conv and the shortcut, with flax's
+    "SAME" padding."""
 
     def __init__(self, in_ch: int, features: int, use_1x1conv: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, strides: int = 1):
         super().__init__()
-        if not use_1x1conv and in_ch != features:
-            raise ValueError("an identity shortcut needs in_ch == features")
-        self.Conv_0 = _conv(in_ch, features, 3, dtype)
+        if not use_1x1conv and (in_ch != features or strides != 1):
+            raise ValueError("an identity shortcut needs in_ch == features and strides 1")
+        self.strides = strides
+        self.Conv_0 = _conv(in_ch, features, 3, dtype, strides)
         self.BatchNorm_0 = _batch_norm(features)
         self.Conv_1 = _conv(features, features, 3, dtype)
         self.BatchNorm_1 = _batch_norm(features)
-        self.Conv_2 = _conv(in_ch, features, 1, dtype) if use_1x1conv else None
+        self.Conv_2 = _conv(in_ch, features, 1, dtype, strides) if use_1x1conv else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = F.relu(self.BatchNorm_0(self.Conv_0(_same_pad(x, 3, self.strides))))
         y = self.BatchNorm_1(self.Conv_1(y))
         if self.Conv_2 is not None:
             x = self.Conv_2(x)

@@ -98,3 +98,24 @@ def test_rotating_dataset_schedule_and_shards_match_jax(bins):
     assert rot._resident is None
     with pytest.raises(ValueError):
         data.RotatingDeviceDataset(ds, shards=0, device="cpu")
+
+
+@pytest.mark.parametrize("shuffle,drop_last,batch", [(True, True, 2), (False, False, 3)])
+def test_streaming_loader_bfloat16_wire_matches_jax(bins, shuffle, drop_last, batch):
+    """The streaming loader with a bfloat16 wire dtype (``quality_run
+    --streaming --data_dtype bfloat16``): each batch cast on the host, bit
+    for bit the JAX package's ``epoch_loader(..., dtype=jnp.bfloat16)``,
+    halfway cases rounded to the even neighbour."""
+    ds, jds = _datasets(bins)
+    got = list(data.epoch_loader(ds, batch, shuffle=shuffle, drop_last=drop_last, seed=9, device="cpu",
+                                 dtype=torch.bfloat16))
+    want = list(jdata.epoch_loader(jds, batch, shuffle=shuffle, drop_last=drop_last, seed=9, dtype=jnp.bfloat16))
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert len(g) == len(w) == 3
+        for a, b in zip(g, w):
+            assert a.dtype == torch.bfloat16 and tuple(a.shape) == b.shape
+            np.testing.assert_array_equal(_bits(a), _jbits(b))
+    first = got[0][1] if not shuffle else None
+    if first is not None:  # sample 0's amp leads with the halfway cases
+        np.testing.assert_array_equal(_bits(first).flatten()[:3].view(np.uint16), [0x3F80, 0x3F82, 0xBF80])

@@ -46,6 +46,14 @@ SLICE_MODULES = [
     "learned_hologram_gan_tpu_torch.tools.make_synthetic_dataset",
     "learned_hologram_gan_tpu_torch.mixed_radix_smoke",
     "learned_hologram_gan_tpu_torch.highres_smoke",
+    "learned_hologram_gan_tpu_torch.tools.quality_run",
+    "learned_hologram_gan_tpu_torch.tools.ablation_run",
+    "learned_hologram_gan_tpu_torch.tools.convert_reference_weights",
+    "learned_hologram_gan_tpu_torch.tools.perceptual_study",
+    "learned_hologram_gan_tpu_torch.examples.warming_up_asm",
+    "learned_hologram_gan_tpu_torch.examples.warming_up_aperture",
+    "learned_hologram_gan_tpu_torch.examples.warming_up_resnet",
+    "learned_hologram_gan_tpu_torch.quality_smoke",
 ]
 
 

@@ -46,24 +46,34 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def patch_jax_generator_init(mp):
-    """Make the JAX generator's ``init`` return seeded numpy variables of
-    its tree (``jax.eval_shape``, as tests/test_torch_models.py's
-    ``jax_variables``) in place of running it."""
+def patch_jax_init(mp, module_cls, seed=100, record=None):
+    """Make ``module_cls.init`` (a JAX package model) return seeded numpy
+    variables of its tree (``jax.eval_shape``, as tests/test_torch_models.py's
+    ``jax_variables``) in place of running it; each call's numpy variables
+    are appended to ``record`` when given."""
     import functools
 
     import jax
 
-    from learned_hologram_gan_tpu.models import Generator as JaxGenerator
     from test_torch_models import _fill, to_jax
 
-    init = JaxGenerator.init
+    init = module_cls.init
 
     def from_shapes(self, rngs, *args, **kwargs):
         shapes = jax.eval_shape(functools.partial(init, self, **kwargs), rngs, *args)
-        return to_jax({k: _fill(v, np.random.default_rng(100)) for k, v in shapes.items()})
+        variables = {k: _fill(v, np.random.default_rng(seed)) for k, v in shapes.items()}
+        if record is not None:
+            record.append(variables)
+        return to_jax(variables)
 
-    mp.setattr(JaxGenerator, "init", from_shapes)
+    mp.setattr(module_cls, "init", from_shapes)
+
+
+def patch_jax_generator_init(mp):
+    """:func:`patch_jax_init` for the JAX generator."""
+    from learned_hologram_gan_tpu.models import Generator as JaxGenerator
+
+    patch_jax_init(mp, JaxGenerator)
 
 
 @pytest.fixture
